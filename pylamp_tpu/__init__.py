@@ -1,4 +1,4 @@
-"""pylamp_tpu — a TPU-native 2-D thermomechanical geodynamics framework.
+"""pylamp_tpu — a JAX 2-D thermomechanical geodynamics framework.
 
 A from-scratch rebuild of the capabilities of the reference code
 ``larskaislaniemi/PyLamp`` (a serial numpy/scipy marker-in-cell staggered-grid
@@ -6,16 +6,16 @@ Stokes + energy code; see SURVEY.md — the reference mount at /root/reference
 was empty this round, so parity targets are the [DRIVER] spec in BASELINE.json
 plus community benchmarks: Blankenbach, van Keken RT, Crameri sticky-air).
 
-Architecture (TPU-first, not a translation):
+Architecture (array-first, not a translation):
 
 - ``core``     staggered-grid geometry, boundary conditions, configuration
 - ``ops``      matrix-free stencil operators (Stokes saddle-point, energy),
-               with Pallas TPU kernels for the hot paths in ``ops/pallas``
+               plain jax.numpy that XLA fuses
 - ``solvers``  pytree Krylov (CG/BiCGStab/FGMRES), geometric multigrid,
                pressure-nullspace projection, equation scaling
 - ``markers``  marker-in-cell subsystem: seeding, marker<->grid transfer,
-               RK4 advection — built on sort + segment_sum (TPU-friendly
-               deterministic scatter), not random-access loops
+               RK4 advection — dense cell-bucketed shifts
+               (markers/bucket.py), not random-access loops
 - ``physics``  material tables, rheology (isoviscous / Frank-Kamenetskii /
                Arrhenius), buoyancy
 - ``parallel`` device-mesh construction and sharding specs: 2-D domain

@@ -7,8 +7,8 @@ implements: pressure at cell centers, velocities at face midpoints, shear
 viscosity / temperature at basic (corner) nodes).
 
 Axis convention: index ``[j, i]`` = (row, col) = (y, x); y points *down*
-(depth), gravity is ``+y``.  x is the contiguous (last) axis so it maps onto
-TPU vector lanes.
+(depth), gravity is ``+y``.  x is the contiguous (last) axis, so stencil
+shifts along x read contiguous memory.
 
 Sub-grid layouts for an ``ny x nx``-cell domain of size ``ly x lx``:
 

@@ -1,8 +1,7 @@
-"""Dense bucketed marker engine — the TPU-native marker representation.
+"""Dense bucketed marker engine — the production marker representation.
 
-XLA scatter/gather on TPU costs ~50-80 ms per 9.4M-marker operation
-(measured on v5e), and the flat marker pipeline needs ~40 of them per step
-— it dominated the 1024^2 timestep (~7 s of 7.4 s).  This module implements
+The flat marker pipeline (markers/interp.py, markers/advect.py) needs ~40
+scatter/gather operations over all markers per step.  This module implements
 the capacity/padding strategy prescribed in SURVEY.md §7.3 item 2: markers
 live in a dense (ny, nx, K) layout bucketed by their owning grid cell, and
 EVERY marker operation — marker->grid transfer, grid->marker interpolation,
@@ -18,10 +17,9 @@ Key facts the design rests on:
 - with Courant <= 1 a marker moves at most one cell per step, so
   re-bucketing only exchanges with the 3x3 cell neighborhood: one
   sequential pass over the 9K candidate slots re-packs every bucket with
-  one-hot inserts (dense fma over K lanes).  Measured alternative (round
-  2): a sort-compaction rebucket (per-slab lax.sort + take_along_axis
-  merge) is bit-identical but 275x SLOWER on v5e — minor-axis gather is
-  the single most hostile op on TPU; keep rebucketing gather-free;
+  one-hot inserts (dense fma over K lanes).  A sort-compaction rebucket
+  (per-slab lax.sort + take_along_axis merge) is bit-identical; which of
+  the two is faster on the GPU has not been measured;
 - empty slots are masked by `valid`; per-cell capacity overflow drops the
   latest arrivals deterministically and is reported in diagnostics.
 
@@ -30,8 +28,7 @@ structure: the position -> (node interval, local coord) map becomes a
 WINDOWED locate (`_axis_locate`) — the containing interval is within a
 small static offset window of the marker's bucket cell, so it resolves
 with a handful of comparisons/selects against host-shifted per-cell node
-coordinate rows.  Still no gather, no sort.  (The Pallas kernels remain
-uniform-only; stretched runs take these XLA paths.)
+coordinate rows.  Still no gather, no sort.
 """
 from __future__ import annotations
 
@@ -308,20 +305,22 @@ def bucket_markers_to_grid(
     # to the bucket cell; node (j+a, i+b) receives weight w[dj,di] from
     # markers with o_j + dj == a and o_i + di == b.
     corners = ((0, 0, ws[0]), (0, 1, ws[1]), (1, 0, ws[2]), (1, 1, ws[3]))
-    zero = jnp.zeros((grid.ny, grid.nx), v.dtype)
     nxu = grid.nx if periodic_x else nx_n  # unique node columns
     field_wv = jnp.zeros((ny_n, nxu), v.dtype)
     field_w = jnp.zeros((ny_n, nxu), v.dtype)
     # o in {-1, 0, +1} covers every sub-lattice (clamping keeps it there)
     for a in (-1, 0, 1):
         for b in (-1, 0, 1):
-            s_wv = zero
-            s_w = zero
+            # One K-reduction per sum and offset, of the four corner weights
+            # added first: XLA:GPU fuses these small reductions into the
+            # shifting consumers, and with one reduction per corner the
+            # fused kernels spilled registers and took minutes to compile.
+            wsel = 0.0
             for dj, di, w in corners:
                 sel = (o_j + dj == a) & (o_i + di == b) & vmask
-                wm = jnp.where(sel, w, 0.0)
-                s_wv = s_wv + jnp.sum(wm * v, axis=-1)
-                s_w = s_w + jnp.sum(wm, axis=-1)
+                wsel = wsel + jnp.where(sel, w, 0.0)
+            s_wv = jnp.sum(wsel * v, axis=-1)
+            s_w = jnp.sum(wsel, axis=-1)
             if periodic_x:
                 field_wv = field_wv + _cells_to_nodes_px(s_wv, a, b, ny_n)
                 field_w = field_w + _cells_to_nodes_px(s_w, a, b, ny_n)

@@ -5,8 +5,9 @@ marker -> grid: bilinear (distance) weights to the 4 surrounding nodes of
 the target sub-grid, accumulated with scatter-add and normalized — a
 weighted arithmetic mean, with geometric / harmonic options for viscosity
 (SURVEY.md §2.1).  The scatter uses flat node indices + ``.at[].add`` (XLA
-scatter-add; deterministic on TPU/CPU).  A sorted segment-sum Pallas variant
-is the planned hot-path optimization (SURVEY.md §7.2 step 5).
+scatter-add; deterministic on the CPU, while a GPU scatter-add may sum in
+a run-dependent order).  This flat engine is the reference the tests
+compare the bucket engine (markers/bucket.py) against.
 
 grid -> marker: bilinear gather from the (ghost-padded where relevant)
 sub-grid.

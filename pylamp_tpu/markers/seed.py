@@ -19,8 +19,7 @@ def seed_markers(
     jittered (jitter in [0, 1]: fraction of the sub-cell spacing).
 
     Returns (x, y) arrays of length nx*ny*mpc^2 (static), ordered
-    cell-major — a TPU-friendly layout (markers in the same cell are
-    contiguous)."""
+    cell-major (markers in the same cell are contiguous)."""
     m = markers_per_cell_dim
     nxm, nym = grid.nx * m, grid.ny * m
     ddx, ddy = grid.lx / nxm, grid.ly / nym

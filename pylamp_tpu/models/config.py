@@ -37,7 +37,7 @@ class PhysicsConfig:
 class SolverConfig:
     # "auto": plain solves in the state dtype, except f32 state with x64
     # available -> mixed (f32 inner solves + f64 iterative refinement, the
-    # TPU path to 1e-8); "f32"/"f64"/"mixed" force a mode.
+    # path to 1e-8 from an f32 state); "f32"/"f64"/"mixed" force a mode.
     precision: str = "auto"
     inner_tol: float = 1e-4  # inner-solve tolerance in mixed mode
     max_refinements: int = 6
@@ -50,8 +50,7 @@ class SolverConfig:
     # viscosity contrast: a marginal cycle amplifies when iterated)
     mg_pre_smooth: int = 3  # Chebyshev degree
     mg_post_smooth: int = 3
-    # V-cycle smoother: "chebyshev" (default; Pallas-fused where eligible),
-    # "jacobi", or line relaxation for anisotropic stretched grids —
+    # V-cycle smoother: "chebyshev" (default), "jacobi", or line relaxation for anisotropic stretched grids —
     # "line" (alternating y/x tridiagonal sweeps, solvers/lines.py),
     # "line_y" / "line_x" (one axis).  Line smoothing requires
     # non-periodic side walls.
@@ -62,9 +61,8 @@ class SolverConfig:
     # "gershgorin" (default on uniform grids) = rigorous analytic row-sum
     # bound, no operator applies; "power" = per-level power iteration
     # refreshed every mg_lam_refresh_every steps (warm-started through
-    # ModelState.mg_lam; the per-level dispatch costs ~21 ms/solve at
-    # 1024^2 on v5e, hence the cadence).  Non-uniform levels always use
-    # power iteration.
+    # ModelState.mg_lam; its per-level dispatch is why it runs on a
+    # cadence).  Non-uniform levels always use power iteration.
     mg_lam_mode: str = "gershgorin"
     mg_lam_refresh_every: int = 8
     # Extreme-contrast stabilizers (solvers/mg.py): diagonally-scaled
@@ -113,8 +111,8 @@ class SolverConfig:
     mg_eta_cap: float = 0.0
     # Multi-chip: replicate MG levels whose smaller extent is <= this many
     # cells across the device mesh (one all-gather per V-cycle) instead of
-    # leaving them domain-decomposed and ICI-latency-bound.  Takes effect
-    # only when make_step receives a mesh.  0 = off.
+    # leaving them domain-decomposed and bound by exchange latency.  Takes
+    # effect only when make_step receives a mesh.  0 = off.
     mg_coarse_replicate: int = 0
     # Multi-chip: route every Stokes/energy stencil application through the
     # explicit shard_map + ppermute halo-exchange operators
@@ -122,42 +120,6 @@ class SolverConfig:
     # effect only when make_step receives a mesh; levels/grids that don't
     # decompose evenly fall back to GSPMD per application.
     explicit_halo: bool = False
-    # Fused Pallas stencil kernel in the MG smoother.  Measured on v5e at
-    # 1024^2: 0.651 s/step vs 0.627 s/step for the XLA-fused jnp path — XLA
-    # already fuses this stencil well, so the kernel is off by default and
-    # kept as the native-kernel path for further tuning (double buffering).
-    use_pallas: bool = False
-    # Fused multi-iteration Chebyshev smoother kernel
-    # (ops/pallas/cheb_kernel.py): all sweep iterations VMEM-resident with
-    # deep halos — on by default (eligibility-gated: f32, TPU, iters <= 3,
-    # single-chip); the mesh/vmap paths fall back to the jnp smoother.
-    use_pallas_smoother: bool = True
-    # Fused coarse sub-V-cycle kernel (ops/pallas/coarse_vcycle_kernel.py):
-    # every MG level below the fused-smoother cutoff in ONE pallas_call —
-    # kills the dispatch-bound coarse-level tail of the V-cycle (~0.4 ms
-    # per smoother call on v5e).  Single-chip, uniform, full-coarsening,
-    # non-periodic hierarchies only; ineligible shapes fall back.
-    use_pallas_coarse: bool = True
-    # Fused marker->grid transfer kernel (markers/pallas/m2g_kernel.py):
-    # every interp/energy stream in one VMEM pass over the marker state —
-    # measured 16x vs the XLA bucketed transfers at 1024^2xK18 on v5e.
-    # Eligibility-gated like the other kernels (f32, TPU, single-chip,
-    # not vmapped); ineligible shapes fall back to the XLA path.
-    use_pallas_m2g: bool = True
-    # Fused RK4 advection kernel (markers/pallas/advect_kernel.py): all 4
-    # stages in one VMEM residency — measured 5.7x vs the XLA dense-shift
-    # RK4 at 1024^2xK18 on v5e.  Same eligibility gating.
-    use_pallas_advect: bool = True
-    # Fused full-saddle apply kernel for the FGMRES outer iterations
-    # (ops/pallas/stokes_kernel.saddle_apply_pallas): momentum + pressure
-    # gradient + continuity in one double-buffered VMEM pass — the jnp
-    # stencil lowers to many small kernels (measured 1.45 ms/apply at
-    # 1024^2 on v5e, ~30x the HBM bound).  Same eligibility gating.
-    use_pallas_apply: bool = True
-    # Force interpret-mode Pallas in the explicit-halo marker dispatches
-    # (testing/dryrun only: lets the CPU virtual-device mesh exercise the
-    # pallas-in-shard_map production path; real TPU runs leave this False).
-    pallas_interpret: bool = False
     energy_tol: float = 1e-10
     energy_maxiter: int = 2000
     # "jacobi" is optimal while rho*Cp/dt dominates (transient steps);
@@ -193,8 +155,8 @@ class ModelConfig:
     x_edges: tuple | None = None
     y_edges: tuple | None = None
     markers_per_cell_dim: int = 3
-    # "bucket": dense (ny, nx, K) cell-bucketed markers — the TPU hot path
-    # (no scatter/gather in the step); "flat": (N,) arrays with XLA
+    # "bucket": dense (ny, nx, K) cell-bucketed markers — the production
+    # path (no scatter/gather in the step); "flat": (N,) arrays with XLA
     # scatter/gather (reference-style semantics, used by oracle-parity tests)
     marker_engine: str = "bucket"
     marker_capacity: int = 0  # 0 = auto: 2 * markers_per_cell_dim^2

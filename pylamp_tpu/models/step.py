@@ -83,13 +83,6 @@ class InterpOut(NamedTuple):
     k_m: Any  # marker conductivity (dt cap + energy phase)
     rhocp_m: Any  # marker rho*Cp
     H_m: Any  # marker internal heating
-    # Grid fields prefused by the Pallas m2g kernel (None on the XLA
-    # fallback path; the energy phase then does its own transfers).
-    T_old_g: Any = None
-    k_g: Any = None
-    rhocp_g: Any = None
-    H_g: Any = None
-    ra_g: Any = None
 
 
 class StepPhases(NamedTuple):
@@ -98,16 +91,14 @@ class StepPhases(NamedTuple):
     energy: Callable  # (state, InterpOut, vx, vy, dt) -> (markers, T_new, diag)
     advect: Callable  # (state, markers, vx, vy, dt, T_new) -> (markers, diag)
     timestep: Callable  # (vx, vy, k_m, rhocp_m) -> dt
+    # (state, InterpOut) -> (StokesSolution in the solve's own precision,
+    # per-level MG lambda bounds or None): the solve ``stokes`` wraps
+    stokes_solution: Callable
 
 
 def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable,
-                     mesh=None, batched=False):
-    """``mesh``: the jax.sharding.Mesh of a domain-decomposed run;
-    ``batched``: set when the step will run under vmap (models/sweep.py).
-    Either disables the Pallas rebucket dispatch: pallas_call has no GSPMD
-    partitioning/batching rule, so on sharded or vmapped marker state it
-    would force full replication (or fail to lower) instead of running the
-    intended single-chip VMEM repack."""
+                     mesh=None):
+    """``mesh``: the jax.sharding.Mesh of a domain-decomposed run."""
     phys = cfg.physics
     solver = cfg.solver
     tc = cfg.time
@@ -173,9 +164,6 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable
             post_smooth=solver.mg_post_smooth,
             smoother=solver.mg_smoother,
             omega=solver.mg_omega,
-            use_pallas=solver.use_pallas,
-            use_pallas_smoother=(solver.use_pallas_smoother and not batched),
-            use_pallas_coarse=solver.use_pallas_coarse,
             scaled_transfers=solver.mg_scaled_transfers,
             ls_damp=solver.mg_ls_damp,
             semicoarsen=solver.mg_semicoarsen,
@@ -187,7 +175,6 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable
             velocity_inner_iters=solver.mg_velocity_inner_iters,
             velocity_inner_tol=solver.mg_velocity_inner_tol,
             eta_cap=solver.mg_eta_cap,
-            pallas_interpret=solver.pallas_interpret,
             al_gamma=solver.stokes_al_gamma,
         )
     elif solver.preconditioner == "vanka":
@@ -231,48 +218,6 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable
         rhocp_m = table.rho_cp(m.mat, m.T)
         H_m = table.heating(m.mat, dtype)
 
-        if isinstance(m, BucketedMarkers):
-            from pylamp_tpu.markers.pallas.m2g_kernel import (
-                m2g_fused_eligible,
-                m2g_fused_pallas,
-            )
-
-            _ny, _nx, _K = m.x.shape
-            with_ra = phys.adiabatic_heating and phys.solve_energy
-            if (solver.use_pallas_m2g
-                    and mesh is None
-                    and not batched
-                    and grid.uniform  # kernel index math assumes uniform cells
-                    and dtype == jnp.float32
-                    and m2g_fused_eligible(_ny, _nx, _K)):
-                out = m2g_fused_pallas(
-                    m, grid, table, phys, with_energy=phys.solve_energy,
-                    with_ra=with_ra, periodic_x=periodic,
-                )
-                return _interp_fused(m, rho_m, k_m, rhocp_m, H_m, state, out)
-            if (solver.use_pallas_m2g
-                    and marker_halo_mesh is not None
-                    and not batched
-                    and dtype == jnp.float32):
-                # pallas-in-shard_map: the per-shard fused kernel inside
-                # the explicit-halo engine (parallel/halo_markers.py)
-                from pylamp_tpu.parallel.halo_markers import (
-                    m2g_fused_halo,
-                    m2g_fused_halo_eligible,
-                )
-
-                if m2g_fused_halo_eligible(
-                    m, grid, marker_halo_mesh,
-                    interpret=solver.pallas_interpret,
-                ):
-                    out = m2g_fused_halo(
-                        m, grid, table, phys, marker_halo_mesh,
-                        with_energy=phys.solve_energy, with_ra=with_ra,
-                        interpret=solver.pallas_interpret,
-                    )
-                    return _interp_fused(m, rho_m, k_m, rhocp_m, H_m,
-                                         state, out)
-
         eta_m = jnp.clip(table.viscosity_of(m.mat, m.T), phys.eta_min, phys.eta_max)
         eta_s = _disp_interp_fb(m, eta_m, "corner", phys.eta_avg, state.eta_s)
         eta_n = _disp_interp_fb(m, eta_m, "center", phys.eta_avg, state.eta_n)
@@ -287,53 +232,6 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable
             rho_vx = jnp.zeros(grid.shape_vx, dtype)
         return InterpOut(eta_s, eta_n, rho_vx, rho_vy, k_m, rhocp_m, H_m)
 
-    def _interp_fused(m, rho_m, k_m, rhocp_m, H_m, state, out) -> InterpOut:
-        """All marker->grid streams in one Pallas pass (16x vs the XLA
-        transfers, measured at 1024^2xK18 on v5e) — including the energy
-        phase's corner-lattice fields so the marker state is read once.
-        ``out``: the raw weighted-sum dict from m2g_fused_pallas
-        (single-chip) or parallel/halo_markers.m2g_fused_halo (per-shard
-        Pallas inside the explicit-halo engine)."""
-        dtype = m.x.dtype
-        with_ra = phys.adiabatic_heating and phys.solve_energy
-
-        def mean_of(wv, w, fallback):
-            return jnp.where(w > 0, wv / jnp.where(w == 0, 1.0, w), fallback)
-
-        def eta_of(wv, w, fallback):
-            mean = wv / jnp.where(w == 0, 1.0, w)
-            if phys.eta_avg == "geometric":
-                mean = jnp.exp(mean)
-            elif phys.eta_avg == "harmonic":
-                mean = 1.0 / jnp.where(mean == 0, 1.0, mean)
-            return jnp.where(w > 0, mean, fallback)
-
-        eta_s = eta_of(out["c_eta"], out["c_w"], state.eta_s)
-        eta_n = eta_of(out["n_eta"], out["n_w"], state.eta_n)
-        rho_vy = mean_of(out["vy_rho"], out["vy_w"], _marker_mean(m, rho_m))
-        if phys.gx != 0.0:
-            rho_vx = mean_of(out["vx_rho"], out["vx_w"], _marker_mean(m, rho_m))
-        else:
-            rho_vx = jnp.zeros(grid.shape_vx, dtype)
-
-        T_old_g = k_g = rhocp_g = H_g = ra_g = None
-        if phys.solve_energy:
-            cw = out["c_w"]
-            T_old_g = mean_of(out["c_T"], cw, state.T)
-            k_g = mean_of(out["c_k"], cw, _marker_mean(m, k_m))
-            rhocp_g = mean_of(out["c_rhocp"], cw, _marker_mean(m, rhocp_m))
-            if "c_H" in out:
-                H_g = mean_of(out["c_H"], cw, jnp.asarray(0.0, dtype))
-            else:
-                H_g = jnp.zeros(grid.shape_corner, dtype)
-            if with_ra:
-                ra_m = table._select(table.rho0, m.mat, dtype) * table._select(
-                    table.alpha, m.mat, dtype
-                )
-                ra_g = mean_of(out["c_ra"], cw, _marker_mean(m, ra_m))
-        return InterpOut(eta_s, eta_n, rho_vx, rho_vy, k_m, rhocp_m, H_m,
-                         T_old_g, k_g, rhocp_g, H_g, ra_g)
-
     # the Chebyshev lambda_max bounds warm-start across steps via
     # ModelState.mg_lam (solvers/mg.py estimate_mg_lambdas): 2 refresh
     # power iterations per level instead of 12, floored at the previous
@@ -343,9 +241,8 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable
     )
 
     # ---- phase 2: Stokes solve (warm-started) ------------------------------
-    def stokes(state: ModelState, io: InterpOut):
-        dtype = state.markers.x.dtype if not isinstance(state.markers, BucketedMarkers) \
-            else state.markers.x.dtype
+    def stokes_solution(state: ModelState, io: InterpOut):
+        dtype = state.markers.x.dtype
         mk = make_precond
         lam_new = None
         if warmstart_lam and state.mg_lam is not None and state.mg_lam.shape[0] > 0:
@@ -396,13 +293,6 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable
                 x0=(state.vx, state.vy, state.p),
                 make_preconditioner=mk,
                 halo_mesh=halo_mesh,
-                # on a mesh the explicit-halo shard bodies dispatch the
-                # per-shard block kernel (block_stencil_kernel); GSPMD
-                # (halo_mesh None, mesh set) stays jnp — pallas_call has
-                # no GSPMD partitioning rule
-                use_pallas_apply=(solver.use_pallas_apply and not batched
-                                  and (mesh is None or halo_mesh is not None)),
-                pallas_interpret=solver.pallas_interpret,
                 al_gamma=solver.stokes_al_gamma,
             )
         else:
@@ -416,6 +306,11 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable
                 make_preconditioner=mk,
                 halo_mesh=halo_mesh,
             )
+        return sol, lam_new
+
+    def stokes(state: ModelState, io: InterpOut):
+        dtype = state.markers.x.dtype
+        sol, lam_new = stokes_solution(state, io)
         vx = sol.vx.astype(dtype)
         vy = sol.vy.astype(dtype)
         p = sol.p.astype(dtype)
@@ -466,20 +361,16 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable
         if not phys.solve_energy:
             return m, state.T, diag
 
-        if io.T_old_g is not None:
-            # prefused by the Pallas m2g kernel in the interp phase
-            T_old, k_g, rhocp_g, H_g = io.T_old_g, io.k_g, io.rhocp_g, io.H_g
-        else:
-            T_old = _disp_interp_fb(m, m.T, "corner", "arithmetic", state.T)
-            k_g = _disp_interp_fb(
-                m, io.k_m, "corner", "arithmetic", _marker_mean(m, io.k_m)
-            )
-            rhocp_g = _disp_interp_fb(
-                m, io.rhocp_m, "corner", "arithmetic", _marker_mean(m, io.rhocp_m)
-            )
-            H_g = _disp_interp_fb(
-                m, io.H_m, "corner", "arithmetic", jnp.asarray(0.0, dtype)
-            )
+        T_old = _disp_interp_fb(m, m.T, "corner", "arithmetic", state.T)
+        k_g = _disp_interp_fb(
+            m, io.k_m, "corner", "arithmetic", _marker_mean(m, io.k_m)
+        )
+        rhocp_g = _disp_interp_fb(
+            m, io.rhocp_m, "corner", "arithmetic", _marker_mean(m, io.rhocp_m)
+        )
+        H_g = _disp_interp_fb(
+            m, io.H_m, "corner", "arithmetic", jnp.asarray(0.0, dtype)
+        )
         if phys.shear_heating:
             from pylamp_tpu.physics.heating import shear_heating
 
@@ -487,15 +378,12 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable
         if phys.adiabatic_heating:
             from pylamp_tpu.physics.heating import adiabatic_heating
 
-            if io.ra_g is not None:
-                ra_g = io.ra_g
-            else:
-                ra_m = table._select(table.rho0, m.mat, dtype) * table._select(
-                    table.alpha, m.mat, dtype
-                )
-                ra_g = _disp_interp_fb(
-                    m, ra_m, "corner", "arithmetic", _marker_mean(m, ra_m)
-                )
+            ra_m = table._select(table.rho0, m.mat, dtype) * table._select(
+                table.alpha, m.mat, dtype
+            )
+            ra_g = _disp_interp_fb(
+                m, ra_m, "corner", "arithmetic", _marker_mean(m, ra_m)
+            )
             H_g = H_g + adiabatic_heating(T_old, ra_g, vy, phys.gy, grid)
         if _mixed(dtype):
             esol = solve_energy_mixed(
@@ -560,12 +448,6 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable
             # (dt_min could push dt past the Courant bound -> stay at 2)
             reach = 1 if (tc.courant <= 0.5 and tc.dt_min == 0.0
                           and not moving_walls) else 2
-            from pylamp_tpu.markers.pallas.advect_kernel import (
-                advect_rk4_eligible,
-                advect_rk4_pallas,
-            )
-
-            _ny, _nx, _K = markers.x.shape
             if marker_halo_mesh is not None:
                 # explicit shard_map+ppermute path (parallel/halo_markers.py)
                 from pylamp_tpu.parallel.halo_markers import (
@@ -576,45 +458,13 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable
                 markers = advect_rk4_halo(
                     markers, vx, vy, dt, grid, vbc, marker_halo_mesh,
                     stage_reach=reach,
-                    use_pallas=solver.use_pallas_advect,
-                    interpret=solver.pallas_interpret,
                 )
-                markers, dropped = rebucket_halo(
-                    markers, grid, marker_halo_mesh,
-                    interpret=solver.pallas_interpret,
-                )
-            elif (solver.use_pallas_advect
-                    and mesh is None
-                    and not batched
-                    and grid.uniform  # kernel index math assumes uniform cells
-                    and markers.x.dtype == jnp.float32
-                    and advect_rk4_eligible(_ny, _nx, _K)):
-                # fused VMEM RK4 (5.7x, markers/pallas/advect_kernel.py)
-                markers = advect_rk4_pallas(markers, vx, vy, dt, grid, vbc,
-                                            stage_reach=reach)
+                markers, dropped = rebucket_halo(markers, grid,
+                                                 marker_halo_mesh)
             else:
                 markers = bucket_advect_rk4(markers, vx, vy, dt, grid, vbc,
                                             stage_reach=reach)
-            if marker_halo_mesh is None:
-                # Pallas VMEM-resident repack where eligible: bit-identical
-                # to rebucket, measured 4.1x faster at 1024^2xK16 on v5e
-                # (markers/pallas/rebucket_kernel.py)
-                from pylamp_tpu.markers.pallas.rebucket_kernel import (
-                    rebucket_eligible,
-                    rebucket_pallas,
-                )
-
-                _ny, _nx, _K = markers.x.shape
-                if (mesh is None
-                        and not batched
-                        and grid.uniform  # kernel index math assumes uniform cells
-                        and markers.x.dtype == jnp.float32
-                        and rebucket_eligible(_ny, _nx, _K)):
-                    markers, dropped = rebucket_pallas(markers, grid,
-                                                       periodic_x=periodic)
-                else:
-                    markers, dropped = rebucket(markers, grid,
-                                                periodic_x=periodic)
+                markers, dropped = rebucket(markers, grid, periodic_x=periodic)
             diag["markers_dropped"] = dropped
             diag["marker_count"] = markers.total()
             if phys.reseed_min_per_cell > 0:
@@ -653,17 +503,16 @@ def make_step_phases(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable
                 )
         return markers, diag
 
-    return StepPhases(interp, stokes, energy, advect, timestep)
+    return StepPhases(interp, stokes, energy, advect, timestep, stokes_solution)
 
 
 def make_step(grid: StaggeredGrid, cfg: ModelConfig, table: MaterialTable,
-              mesh=None, batched=False):
+              mesh=None):
     """The fused production step: all phases traced into one function.
 
     ``mesh``: the jax.sharding.Mesh of a domain-decomposed run; enables
-    the mesh-aware solver options (MG coarse-level replication).
-    ``batched``: the step will run under vmap (see make_step_phases)."""
-    ph = make_step_phases(grid, cfg, table, mesh=mesh, batched=batched)
+    the mesh-aware solver options (MG coarse-level replication)."""
+    ph = make_step_phases(grid, cfg, table, mesh=mesh)
 
     def step(state: ModelState) -> Tuple[ModelState, Dict[str, Any]]:
         io = ph.interp(state)

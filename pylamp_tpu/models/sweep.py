@@ -1,6 +1,6 @@
 """DP-analogue batched parameter sweeps (SURVEY.md §2.3 row 1).
 
-The reference is a serial single-model code; the TPU-native data-parallel
+The reference is a serial single-model code; the data-parallel
 analogue is vmapping the whole model step over a batch of independent
 models — e.g. a Rayleigh-number sweep for a convection study.  The grid,
 config tree (BCs, solver settings, time control), material COUNT and
@@ -87,7 +87,7 @@ def make_sweep_step(grid, cfg, tables: Sequence[MaterialTable]):
     params = stack_tables(tables)
 
     def one(state, p):
-        step = make_step(grid, cfg, _table_shim(base, p), batched=True)
+        step = make_step(grid, cfg, _table_shim(base, p))
         return step(state)
 
     return jax.jit(jax.vmap(one, in_axes=(0, 0))), params

@@ -3,7 +3,7 @@
 This replaces the reference's scipy sparse matrix assembly of the staggered
 finite-difference Stokes momentum + continuity system (SURVEY.md §3.4) with a
 stencil *application* — the same discrete equations, evaluated directly on
-the field arrays so they can run fused in HBM/VMEM on TPU, be differentiated,
+the field arrays so XLA can fuse them, they can be differentiated,
 and be domain-decomposed by GSPMD without ever materializing a matrix.
 
 Discrete system (Gerya-style fully staggered, uniform grid; see
@@ -79,8 +79,6 @@ def stokes_operator(
     kcont: float = 1.0,
     kbnd: float = 1.0,
     halo_mesh=None,
-    halo_pallas: bool = False,
-    pallas_interpret: bool = False,
 ):
     """Apply the Stokes operator.  Returns (rx, ry, rc) with the shapes of
     (vx, vy, p).
@@ -88,9 +86,7 @@ def stokes_operator(
     ``halo_mesh``: a jax.sharding.Mesh — route the application through the
     explicit shard_map + ppermute halo-exchange path (parallel/halo_ops.py)
     instead of letting GSPMD partition this stencil.  Falls back to the
-    GSPMD path on grids that don't decompose evenly over the mesh.
-    ``halo_pallas``: under ``halo_mesh``, run each shard body's stencil as
-    a fused per-shard Pallas pass (ops/pallas/block_stencil_kernel.py)."""
+    GSPMD path on grids that don't decompose evenly over the mesh."""
     if not grid.uniform:
         from pylamp_tpu.ops.stretched import stokes_operator_stretched
 
@@ -103,8 +99,7 @@ def stokes_operator(
         if halo_eligible(grid, halo_mesh):
             return stokes_operator_halo(
                 vx, vy, p, eta_s, eta_n, grid, bcs, halo_mesh,
-                kcont=kcont, kbnd=kbnd, use_pallas=halo_pallas,
-                interpret=pallas_interpret,
+                kcont=kcont, kbnd=kbnd,
             )
     dx, dy = grid.dx, grid.dy
 

@@ -1,14 +1,13 @@
-"""Multi-chip dry run: jit the FULL timestep over an n-device mesh with the
+"""Multi-device dry run: jit the FULL timestep over an n-device mesh with the
 production shardings and execute one step on tiny shapes (SURVEY.md §4
-'Distributed' tier; run by the driver on virtual CPU devices).
+'Distributed' tier; on virtual CPU devices in the tests, on the GPUs in
+``chip_smoke.py --four``).
 
 Four sub-checks cover the whole multi-chip surface (round-3 verdict item 5),
 each asserted equal to its single-device reference:
 
   gspmd             default auto-partitioned step (Blankenbach physics)
-  explicit_halo     hand-placed ppermute operators + marker halo engine,
-                    with the per-shard Pallas marker kernels running in
-                    interpret mode (pallas-in-shard_map production path)
+  explicit_halo     hand-placed ppermute operators + marker halo engine
   coarse_replicate  MG coarse levels replicated across the mesh
   periodic          wrapped-seam stencils/markers under GSPMD
 """
@@ -61,22 +60,17 @@ def _run_pair(cfg, mesh, dtype, mesh_aware: bool, ref_state=None):
 
 
 def dryrun_multichip(n_devices: int) -> None:
+    """Run the four sub-checks on the first ``n_devices`` devices of the
+    current backend (GPUs, or virtual CPU devices set up by the caller)."""
     import jax.numpy as jnp
 
-    # jax 0.9 ignores --xla_force_host_platform_device_count; virtual CPU
-    # devices come from jax_num_cpu_devices, which must be set BEFORE the
-    # backend initializes (so before any jax.devices() call).
-    try:
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_num_cpu_devices", n_devices)
-    except Exception:
-        pass  # backend already initialized — fall through to the check
     jax.config.update("jax_enable_x64", True)  # equivalence checked in f64
     devs = jax.devices()
-    assert len(devs) >= n_devices, (
-        f"need {n_devices} devices, have {len(devs)} — set jax_num_cpu_devices "
-        f"before first backend use"
-    )
+    if len(devs) < n_devices:
+        raise RuntimeError(
+            f"need {n_devices} devices, have {len(devs)} — on the CPU set "
+            f"jax_num_cpu_devices before first backend use"
+        )
 
     from pylamp_tpu.models.benchmarks import (
         blankenbach_case1a,
@@ -87,7 +81,7 @@ def dryrun_multichip(n_devices: int) -> None:
     from pylamp_tpu.parallel.mesh import make_mesh
     from pylamp_tpu.utils.cache import enable_persistent_cache
 
-    enable_persistent_cache()  # CPU compiles dominate the dryrun wall-clock
+    enable_persistent_cache()
     mesh = make_mesh(n_devices)
     checks = []
 
@@ -103,21 +97,20 @@ def dryrun_multichip(n_devices: int) -> None:
     gspmd_iters = int(diag["stokes_iterations"])
     checks.append(("gspmd", 1e-8))
 
-    # -- (b) explicit halo + marker halo engine + Pallas-in-shard_map ------
-    # f32 state so the per-shard marker kernels (m2g/advect/rebucket) are
-    # eligible; interpret mode stands in for the TPU lowering on the CPU
-    # mesh.  Equivalence at f32 solver tolerance.
+    # -- (b) explicit halo + marker halo engine ----------------------------
+    # f32 state, the production precision of the marker engine.
+    # Equivalence at f32 solver tolerance.
     cfg = falling_block(nx=32, ny=32, max_steps=1)
     cfg = dataclasses.replace(
         cfg,
         solver=SolverConfig(
             precision="f32", stokes_tol=1e-5, stokes_restart=40,
-            stokes_maxiter=600, explicit_halo=True, pallas_interpret=True,
+            stokes_maxiter=600, explicit_halo=True,
         ),
     )
     new, ref, diag = _run_pair(cfg, mesh, jnp.float32, mesh_aware=True)
-    _assert_close(new, ref, diag, "explicit_halo+pallas", 2e-4)
-    checks.append(("explicit_halo+pallas", 2e-4))
+    _assert_close(new, ref, diag, "explicit_halo", 2e-4)
+    checks.append(("explicit_halo", 2e-4))
 
     # -- (c) MG coarse-level replication ------------------------------------
     cfg = blankenbach_case1a(nx=32, ny=32, max_steps=1)
@@ -132,14 +125,12 @@ def dryrun_multichip(n_devices: int) -> None:
     checks.append(("coarse_replicate", 1e-8))
 
     # -- (d) periodic side walls through the EXPLICIT-HALO stencils ---------
-    # (round-4 item 6: ring ppermute over the torus seam + half-convention
-    # seam rows, with the per-shard saddle kernel in interpret mode; the
-    # marker transfers stay GSPMD under periodic)
+    # (ring ppermute over the periodic seam + half-convention seam rows;
+    # the marker transfers stay GSPMD under periodic)
     cfg = falling_block_periodic(nx=32, ny=32, max_steps=1)
     cfg = dataclasses.replace(
         cfg,
-        solver=dataclasses.replace(solver64, explicit_halo=True,
-                                   pallas_interpret=True),
+        solver=dataclasses.replace(solver64, explicit_halo=True),
     )
     new, ref, diag = _run_pair(cfg, mesh, jnp.float64, mesh_aware=True)
     _assert_close(new, ref, diag, "periodic+halo", 1e-8)
@@ -149,6 +140,6 @@ def dryrun_multichip(n_devices: int) -> None:
     print(
         f"dryrun_multichip OK: mesh {dict(zip(mesh.axis_names, mesh.devices.shape))}, "
         f"stokes iters {gspmd_iters}, each sub-check == single-device to its "
-        f"stated tolerance (f64 paths 1e-8; the f32 explicit-halo+pallas path "
+        f"stated tolerance (f64 paths 1e-8; the f32 explicit-halo path "
         f"at f32 solver tolerance): {detail}"
     )

@@ -4,8 +4,8 @@ Completes the explicit SP-analogue path (SURVEY.md §2.3; parallel/halo_ops.py
 covers the Stokes/energy stencil applies): every marker operation of the
 dense bucketed engine (markers/bucket.py) — marker->grid transfer,
 grid->marker gather, RK4 advection, 3x3 re-bucketing, reseed majority vote —
-expressed with hand-placed ``lax.ppermute`` neighbor exchanges over the ICI
-mesh instead of GSPMD auto-partitioning.
+expressed with hand-placed ``lax.ppermute`` neighbor exchanges over the
+device mesh instead of GSPMD auto-partitioning.
 
 Marker state is (ny, nx, K) sharded P("y", "x", None): each device owns the
 markers of its cell block, so every operation is local up to a bounded halo:
@@ -142,13 +142,14 @@ def m2g_halo(
         Ew = jnp.zeros((by + 2, bx + 2), dtype)
         for a in (-1, 0, 1):
             for b in (-1, 0, 1):
-                s_wv = jnp.zeros((by, bx), dtype)
-                s_w = jnp.zeros((by, bx), dtype)
+                # corner weights added before one K-reduction (see
+                # markers/bucket.py bucket_markers_to_grid)
+                wsel = 0.0
                 for dj, di, w in corners:
                     sel = (o_j + dj == a) & (o_i + di == b) & valb
-                    wm = jnp.where(sel, w, 0.0)
-                    s_wv = s_wv + jnp.sum(wm * vb, axis=-1)
-                    s_w = s_w + jnp.sum(wm, axis=-1)
+                    wsel = wsel + jnp.where(sel, w, 0.0)
+                s_wv = jnp.sum(wsel * vb, axis=-1)
+                s_w = jnp.sum(wsel, axis=-1)
                 Ewv = Ewv.at[1 + a : 1 + a + by, 1 + b : 1 + b + bx].add(s_wv)
                 Ew = Ew.at[1 + a : 1 + a + by, 1 + b : 1 + b + bx].add(s_w)
 
@@ -218,126 +219,6 @@ def m2g_halo(
     elif mode == HARMONIC:
         mean = 1.0 / jnp.where(mean == 0, 1.0, mean)
     return mean, field_w
-
-
-def m2g_fused_halo_eligible(bm: BucketedMarkers, grid: StaggeredGrid,
-                            mesh: Mesh, interpret: bool = False) -> bool:
-    """Per-shard eligibility of the fused-m2g Pallas dispatch."""
-    if bm.x.dtype != jnp.float32 or not grid.uniform:
-        return False
-    import jax as _jax
-
-    from pylamp_tpu.markers.pallas.m2g_kernel import m2g_fused_block_eligible
-
-    my, mx = mesh.shape["y"], mesh.shape["x"]
-    by, bx = grid.ny // my, grid.nx // mx
-    try:
-        platform = _jax.devices()[0].platform
-    except Exception:  # pragma: no cover
-        return False
-    return m2g_fused_block_eligible(by, bx, bm.capacity) and (
-        interpret or platform not in ("cpu", "gpu")
-    )
-
-
-def m2g_fused_halo(bm: BucketedMarkers, grid: StaggeredGrid, table, phys,
-                   mesh: Mesh, with_energy: bool = False,
-                   with_ra: bool = False, interpret: bool = False):
-    """Explicit-halo FUSED marker->grid transfer: every per-step stream in
-    one per-shard Pallas pass (markers/pallas/m2g_kernel
-    m2g_fused_block_pallas) after a one-deep marker ring exchange.
-
-    Unlike m2g_halo (scatter + halo-fold, one stream at a time), the
-    kernel is gather-structured: with the neighbor markers exchanged, each
-    shard computes its own node rows/cols COMPLETELY, so assembly is pure
-    selection — interior blocks + psum-selected seam strips.  Returns the
-    same raw weighted-sum dict as the single-device m2g_fused_pallas, so
-    models/step.py's fused interp phase consumes either path."""
-    ny, nx = grid.ny, grid.nx
-    my, mx = mesh.shape["y"], mesh.shape["x"]
-    by, bx = ny // my, nx // mx
-
-    from pylamp_tpu.markers.pallas.m2g_kernel import (
-        _plan,
-        m2g_fused_block_pallas,
-    )
-
-    import numpy as _np
-
-    with_vx = phys.gx != 0.0
-    with_h = bool(_np.any(_np.asarray(table.H) != 0.0))
-    flags = (with_energy, with_h and with_energy, with_ra, with_vx)
-    plan = _plan(flags)
-
-    def local(xb, yb, Tb, mb, vb):
-        iy = lax.axis_index("y")
-        ix = lax.axis_index("x")
-
-        def ext1(arr):
-            t = _recv_prev(arr[-1:], "y", my)
-            b = _recv_next(arr[:1], "y", my)
-            rows = jnp.concatenate([t, arr, b], axis=0)
-            l_ = _recv_prev(rows[:, -1:], "x", mx)
-            r_ = _recv_next(rows[:, :1], "x", mx)
-            return jnp.concatenate([l_, rows, r_], axis=1)
-
-        xe = ext1(xb)
-        ye = ext1(yb)
-        Te = ext1(Tb)
-        me = ext1(mb)
-        ve = ext1(vb.astype(jnp.int32))
-
-        fields, _ = m2g_fused_block_pallas(
-            xe, ye, Te, me, ve, grid, table, phys,
-            row_base=iy * by, col_base=ix * bx,
-            with_energy=with_energy, with_ra=with_ra, interpret=interpret,
-        )
-
-        outs = []
-        for name, lat, _nb in plan:
-            F = fields[name]  # (by+1, W); lane l = node col col_base-1+l
-            interior = F[:by, 1 : bx + 1]
-            brow = F[by : by + 1, 1 : bx + 1]
-            brow = jnp.where(iy == my - 1, brow, jnp.zeros_like(brow))
-            brow = lax.psum(brow, "y")
-            rcol = F[:by, bx + 1 : bx + 2]
-            rcol = jnp.where(ix == mx - 1, rcol, jnp.zeros_like(rcol))
-            rcol = lax.psum(rcol, "x")
-            corner = F[by : by + 1, bx + 1 : bx + 2]
-            here = (iy == my - 1) & (ix == mx - 1)
-            corner = jnp.where(here, corner, jnp.zeros_like(corner))
-            corner = lax.psum(corner, ("y", "x"))
-            outs.extend([interior, brow, rcol, corner])
-        return tuple(outs)
-
-    blk = P("y", "x")
-    blk3 = P("y", "x", None)
-    out_specs = tuple(
-        [blk, P(None, "x"), P("y", None), P(None, None)] * len(plan)
-    )
-    outs = shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(blk3,) * 5,
-        out_specs=out_specs,
-        check_vma=False,  # pallas-in-shard_map (see rebucket_halo)
-    )(bm.x, bm.y, bm.T, bm.mat, bm.valid.astype(jnp.int32))
-
-    shapes = {"corner": (ny + 1, nx + 1), "center": (ny, nx),
-              "vy": (ny + 1, nx), "vx": (ny, nx + 1)}
-    result = {}
-    for k, (name, lat, _nb) in enumerate(plan):
-        interior, brow, rcol, corner = outs[4 * k : 4 * k + 4]
-        rows, cols = shapes[lat]
-        out = interior
-        if cols == nx + 1:
-            out = jnp.concatenate([out, rcol], axis=1)
-        if rows == ny + 1:
-            bottom = (jnp.concatenate([brow, corner], axis=1)
-                      if cols == nx + 1 else brow)
-            out = jnp.concatenate([out, bottom], axis=0)
-        result[name] = out
-    return result
 
 
 # -- grid -> marker ---------------------------------------------------------------
@@ -477,39 +358,16 @@ def advect_rk4_halo(
     bcs: VelocityBCs,
     mesh: Mesh,
     stage_reach: int = 2,
-    use_pallas: bool = True,
-    interpret: bool = False,
 ):
     """Explicit-halo bucket_advect_rk4: one halo exchange of the two
     BC-ghost-padded velocity lattices at the maximum stage reach, then all
-    four RK4 stages sample locally.
-
-    ``use_pallas``: run the per-shard sampling in the fused VMEM RK4
-    kernel (markers/pallas/advect_kernel.advect_block_pallas) on eligible
-    f32 blocks — the exchanged vx_ext/vy_ext windows feed the kernel
-    directly (their frames coincide with the kernel's padded layout)."""
+    four RK4 stages sample locally."""
     ny, nx = grid.ny, grid.nx
     my, mx = mesh.shape["y"], mesh.shape["x"]
     by, bx = ny // my, nx // mx
     dx, dy = grid.dx, grid.dy
     R = stage_reach
     dtype = vx.dtype
-
-    pallas_ok = False
-    if use_pallas and bm.x.dtype == jnp.float32:
-        import jax as _jax
-
-        from pylamp_tpu.markers.pallas.advect_kernel import (
-            advect_block_eligible,
-        )
-
-        try:
-            platform = _jax.devices()[0].platform
-        except Exception:  # pragma: no cover
-            platform = "cpu"
-        pallas_ok = advect_block_eligible(by, bx, bm.capacity) and (
-            interpret or platform not in ("cpu", "gpu")
-        )
 
     def local(vxI, vxR, vyI, vyB, xb, yb, valb, dt_):
         iy = lax.axis_index("y")
@@ -595,18 +453,6 @@ def advect_rk4_halo(
         )
         vy_ext = jnp.concatenate([left, rows, right], axis=1)
 
-        if pallas_ok:
-            from pylamp_tpu.markers.pallas.advect_kernel import (
-                advect_block_pallas,
-            )
-
-            nxp, nyp = advect_block_pallas(
-                xb, yb, valb.astype(jnp.int32), vx_ext, vy_ext, dt_,
-                grid, row_base=iy * by, col_base=ix * bx, reach=R,
-                interpret=interpret,
-            )
-            return nxp, nyp
-
         cj = iy * by + lax.broadcasted_iota(jnp.int32, xb.shape, 0)
         ci = ix * bx + lax.broadcasted_iota(jnp.int32, xb.shape, 1)
 
@@ -644,13 +490,11 @@ def advect_rk4_halo(
 
     blk = P("y", "x")
     blk3 = P("y", "x", None)
-    kw = {"check_vma": False} if pallas_ok else {}
     new_x, new_y = shard_map(
         local,
         mesh=mesh,
         in_specs=(blk, P("y", None), blk, P(None, "x"), blk3, blk3, blk3, P()),
         out_specs=(blk3, blk3),
-        **kw,
     )(
         vx[:, :-1], vx[:, -1:], vy[:-1, :], vy[-1:, :],
         bm.x, bm.y, bm.valid, jnp.asarray(dt, dtype),
@@ -661,41 +505,16 @@ def advect_rk4_halo(
 # -- re-bucketing -----------------------------------------------------------------
 
 
-def rebucket_halo(bm: BucketedMarkers, grid: StaggeredGrid, mesh: Mesh,
-                  use_pallas: bool = True, interpret: bool = False):
+def rebucket_halo(bm: BucketedMarkers, grid: StaggeredGrid, mesh: Mesh):
     """Explicit-halo rebucket: exchange a one-deep ring of the marker arrays,
     then run the same 9-offset one-hot repack on the extended block — the
     candidate order matches markers/bucket.py exactly, so slot assignment is
-    bit-identical.
-
-    ``use_pallas``: dispatch the per-shard repack to the VMEM-resident
-    Pallas kernel (markers/pallas/rebucket_kernel.rebucket_block_pallas) on
-    eligible f32 blocks — each shard_map body is a single-device program,
-    so pallas_call is legal inside it even though it has no GSPMD rule
-    (the round-3 verdict's top gap: multi-chip runs previously forfeited
-    every marker-kernel win).  ``interpret`` forces interpret mode (CPU
-    equivalence tests)."""
+    bit-identical."""
     ny, nx = grid.ny, grid.nx
     my, mx = mesh.shape["y"], mesh.shape["x"]
     by, bx = ny // my, nx // mx
     K = bm.capacity
     dx, dy = grid.dx, grid.dy
-
-    pallas_ok = False
-    if use_pallas and bm.x.dtype == jnp.float32:
-        import jax as _jax
-
-        from pylamp_tpu.markers.pallas.rebucket_kernel import (
-            rebucket_block_eligible,
-        )
-
-        try:
-            platform = _jax.devices()[0].platform
-        except Exception:  # pragma: no cover
-            platform = "cpu"
-        pallas_ok = rebucket_block_eligible(by, bx, K) and (
-            interpret or platform not in ("cpu", "gpu")
-        )
 
     def local(xb, yb, Tb, mb, vb):
         iy = lax.axis_index("y")
@@ -713,22 +532,7 @@ def rebucket_halo(bm: BucketedMarkers, grid: StaggeredGrid, mesh: Mesh,
         ye = ext1(yb)
         Te = ext1(Tb)
         me = ext1(mb)
-        vei = ext1(vb.astype(jnp.int32))
-        ve = vei > 0  # ppermute edge fill = 0 = invalid
-
-        if pallas_ok:
-            from pylamp_tpu.markers.pallas.rebucket_kernel import (
-                rebucket_block_pallas,
-            )
-
-            ox2, oy2, oT2, om2, ov2, oc = rebucket_block_pallas(
-                xe, ye, Te, me, vei, grid,
-                row_base=iy * by, col_base=ix * bx, interpret=interpret,
-            )
-            dropped = lax.psum(
-                jnp.sum(jnp.maximum(oc - K, 0)), ("y", "x")
-            )
-            return ox2, oy2, oT2, om2, ov2 > 0, dropped
+        ve = ext1(vb.astype(jnp.int32)) > 0  # ppermute edge fill = 0 = invalid
 
         # target cell of every extended-frame marker (global indices)
         ti = jnp.clip((xe / dx).astype(jnp.int32), 0, nx - 1)
@@ -799,16 +603,11 @@ def rebucket_halo(bm: BucketedMarkers, grid: StaggeredGrid, mesh: Mesh,
         return out_x, out_y, out_T, out_mat, out_valid, dropped
 
     blk3 = P("y", "x", None)
-    # pallas_call inside a VMA-checked shard_map trips a dynamic_slice
-    # varying-axes check in jax's pallas interpreters/lowering; classic
-    # (check_vma=False) mode is the documented workaround
-    kw = {"check_vma": False} if pallas_ok else {}
     out_x, out_y, out_T, out_mat, out_valid, dropped = shard_map(
         local,
         mesh=mesh,
         in_specs=(blk3,) * 5,
         out_specs=(blk3, blk3, blk3, blk3, blk3, P()),
-        **kw,
     )(bm.x, bm.y, bm.T, bm.mat, bm.valid)
     new = BucketedMarkers(x=out_x, y=out_y, mat=out_mat, T=out_T, valid=out_valid)
     return new, dropped

@@ -96,34 +96,16 @@ def _from_next(x, axis, n, ring: bool = False):
 
 def stokes_operator_halo(
     vx, vy, p, eta_s, eta_n, grid: StaggeredGrid, bcs: VelocityBCs,
-    mesh: Mesh, kcont=1.0, kbnd=1.0, use_pallas: bool = False,
-    interpret: bool = False,
+    mesh: Mesh, kcont=1.0, kbnd=1.0,
 ):
     """Explicit-halo application of the Stokes operator; identical to
     ops.stokes.stokes_operator (same stencil, same BC ghosts) with all
-    neighbor communication placed by hand.
-
-    ``use_pallas``: run the stencil arithmetic of each shard body as a
-    fused Pallas pass over the extended blocks
-    (ops/pallas/block_stencil_kernel.py — round-4 verdict item 1: each
-    shard body is a single-device program, so pallas_call is legal exactly
-    as it is for the marker kernels).  The ppermute halo construction and
-    the Dirichlet-row patches stay in jnp either way."""
+    neighbor communication placed by hand."""
     my, mx = mesh.shape["y"], mesh.shape["x"]
     dx, dy = grid.dx, grid.dy
     dtype = eta_n.dtype
     kcont = jnp.asarray(kcont, dtype)
     kbnd = jnp.asarray(kbnd, dtype)
-
-    pallas_ok = False
-    if use_pallas:
-        from pylamp_tpu.ops.pallas.block_stencil_kernel import (
-            block_stencil_eligible,
-        )
-
-        pallas_ok = block_stencil_eligible(
-            grid.ny // my, grid.nx // mx, dtype, interpret=interpret
-        )
 
     periodic = bcs.periodic_x
 
@@ -194,41 +176,28 @@ def stokes_operator_halo(
         en_ext = ring(en)
         p_ext = ring(pc)
 
-        if pallas_ok:
-            # fused per-shard stencil pass (identical algebra to the jnp
-            # branch below; BC ghosts are already baked into the extended
-            # blocks and the Dirichlet patches follow either way)
-            from pylamp_tpu.ops.pallas.block_stencil_kernel import (
-                saddle_block_pallas,
-            )
+        # the same stencil as ops.stokes.stokes_operator, on extended
+        # blocks
+        dvxdx = (vx_ext[:, 1:] - vx_ext[:, :-1]) / dx  # (by+2, bx+1)
+        dvydy = (vy_ext[1:, :] - vy_ext[:-1, :]) / dy  # (by+1, bx+2)
+        sxx = 2.0 * en_ext[:, :-1] * dvxdx
+        syy = 2.0 * en_ext[:-1, :] * dvydy
+        sxy = es_ext * (
+            (vx_ext[1:, 1:] - vx_ext[:-1, 1:]) / dy
+            + (vy_ext[1:, 1:] - vy_ext[1:, :-1]) / dx
+        )  # corners (by+1, bx+1)
 
-            rx_blk, ry_blk, rc = saddle_block_pallas(
-                vx_ext, vy_ext, p_ext, es_ext, en_ext, grid, kcont=kc_,
-                interpret=interpret,
-            )
-        else:
-            # the same stencil as ops.stokes.stokes_operator, on extended
-            # blocks
-            dvxdx = (vx_ext[:, 1:] - vx_ext[:, :-1]) / dx  # (by+2, bx+1)
-            dvydy = (vy_ext[1:, :] - vy_ext[:-1, :]) / dy  # (by+1, bx+2)
-            sxx = 2.0 * en_ext[:, :-1] * dvxdx
-            syy = 2.0 * en_ext[:-1, :] * dvydy
-            sxy = es_ext * (
-                (vx_ext[1:, 1:] - vx_ext[:-1, 1:]) / dy
-                + (vy_ext[1:, 1:] - vy_ext[1:, :-1]) / dx
-            )  # corners (by+1, bx+1)
-
-            rx_blk = (
-                -(sxx[1:-1, 1:] - sxx[1:-1, :-1]) / dx
-                - (sxy[1:, :-1] - sxy[:-1, :-1]) / dy
-                + (p_ext[1:-1, 1:-1] - p_ext[1:-1, :-2]) / dx
-            )
-            ry_blk = (
-                -(syy[1:, 1:-1] - syy[:-1, 1:-1]) / dy
-                - (sxy[:-1, 1:] - sxy[:-1, :-1]) / dx
-                + (p_ext[1:-1, 1:-1] - p_ext[:-2, 1:-1]) / dy
-            )
-            rc = kc_ * (dvxdx[1:-1, 1:] + dvydy[1:, 1:-1])
+        rx_blk = (
+            -(sxx[1:-1, 1:] - sxx[1:-1, :-1]) / dx
+            - (sxy[1:, :-1] - sxy[:-1, :-1]) / dy
+            + (p_ext[1:-1, 1:-1] - p_ext[1:-1, :-2]) / dx
+        )
+        ry_blk = (
+            -(syy[1:, 1:-1] - syy[:-1, 1:-1]) / dy
+            - (sxy[:-1, 1:] - sxy[:-1, :-1]) / dx
+            + (p_ext[1:-1, 1:-1] - p_ext[:-2, 1:-1]) / dy
+        )
+        rc = kc_ * (dvxdx[1:-1, 1:] + dvydy[1:, 1:-1])
 
         col = lax.broadcasted_iota(jnp.int32, (1, bx), 1)
         row = lax.broadcasted_iota(jnp.int32, (by, 1), 0)
@@ -259,7 +228,9 @@ def stokes_operator_halo(
             P(), P(),                     # kcont, kbnd
         ),
         out_specs=(blk, blk, blk, P("y", None)),
-        check_vma=False,  # pallas-in-shard_map (see parallel/halo_markers)
+        # the seam strip is replicated over x by construction (zeros, or a
+        # psum over x), which the varying-axes check cannot infer
+        check_vma=False,
     )(
         vx[:, :-1], vx[:, -1:],
         vy[:-1, :], vy[-1:, :],

@@ -1,12 +1,12 @@
 """Device mesh + sharding specs: 2-D domain decomposition.
 
-The reference is strictly serial (SURVEY.md §2.3); the TPU-native scaling
-strategy is spatial domain decomposition over a jax.sharding.Mesh:
+The reference is strictly serial (SURVEY.md §2.3); the scaling strategy
+here is spatial domain decomposition over a jax.sharding.Mesh:
 
 - grid fields (vx, vy, p, T, eta_*) are sharded ("y", "x") — each device
   owns a rectangular subdomain; XLA/GSPMD inserts the halo exchanges for
-  the stencils (collective-permutes over ICI) and the psums for Krylov dot
-  products — this is the stencil-code analogue of TP/SP
+  the stencils (collective-permutes between devices) and the psums for
+  Krylov dot products — this is the stencil-code analogue of TP/SP
 - markers are sharded along the marker axis over ALL devices (the DP
   analogue); marker->grid scatters psum partial grids, grid->marker gathers
   all-gather the (small) velocity fields

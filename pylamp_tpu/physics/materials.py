@@ -79,12 +79,10 @@ class MaterialTable:
     def _select(self, vals, mat_id, dtype):
         """id -> per-material value WITHOUT a gather.
 
-        Per-element gathers are the slowest data movement on TPU even when
-        the table is tiny (measured: the 5 gathers of one viscosity lookup
-        at 1024^2 x K18 cost ~30 ms on v5e — comparable to the whole Stokes
-        solve).  With a handful of materials a chain of lane-wise selects
-        is pure VPU work; uniform columns (including the 1-material case)
-        collapse to a broadcast constant at trace time.
+        With a handful of materials a chain of elementwise selects fuses
+        into the consumer with no per-marker memory indirection; uniform
+        columns (including the 1-material case) collapse to a broadcast
+        constant at trace time.
 
         Falls back to traced-select when ``vals`` is a traced array (the
         parameter-sweep shim, models/sweep.py stacks table columns and

@@ -23,8 +23,8 @@ contrast — the property the plain mass scaling loses at a sharp interface.
 The price is a stiffer velocity block: grad-div has a large near-kernel,
 so A_gamma is solved by the inner velocity Krylov (FGMRES/FCG) applying
 A_gamma, PRECONDITIONED by the existing V-cycle on the un-augmented A —
-robust for moderate gamma (the sweet spot measured on sticky-air is
-gamma ~ 0.1-1; see models/benchmarks.py for the production value).
+robust for moderate gamma (the sticky-air preset in models/benchmarks.py
+uses gamma = 10).
 
 Discrete adjointness (uniform staggered grid): our momentum pressure-
 gradient term is +G with (Gq)_vx[i] = (q[i] - q[i-1])/dx and the cell
@@ -64,9 +64,9 @@ def make_grad_div(eta_n, grid: StaggeredGrid, bcs: VelocityBCs, gamma,
 
 def augment_saddle_op(op, gd):
     """Wrap a (vx, vy, p) -> (rx, ry, rc) saddle operator with the AL
-    momentum augmentation (works identically around the jnp stencil, the
-    fused Pallas saddle kernel, and the explicit-halo shard_map path —
-    the grad-div term is a plain XLA stencil on top)."""
+    momentum augmentation (works identically around the jnp stencil and
+    the explicit-halo shard_map path — the grad-div term is a plain XLA
+    stencil on top)."""
 
     def op_aug(u):
         rx, ry, rc = op(u)

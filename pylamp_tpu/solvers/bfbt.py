@@ -44,8 +44,8 @@ NOT a better Schur surrogate but a better velocity block: with the
 velocity block solved exactly, even the mass surrogate needs only ~34
 outer iterations on sticky air (vs 1488 with one V-cycle), so
 ``SolverConfig.mg_velocity_inner_iters`` (a loose inner FGMRES around the
-V-cycle, solvers/mg.py) is the default production path — measured 1.77x
-faster and divergence-free at 512x128 on v5e.  wbfbt remains available
+V-cycle, solvers/mg.py) is the default production path — divergence-free
+at 512x128 where wbfbt stagnates.  wbfbt remains available
 (``schur="wbfbt"``) for smooth-coefficient problems.
 """
 from __future__ import annotations
@@ -54,6 +54,7 @@ import jax.numpy as jnp
 
 from pylamp_tpu.core.bc import VelocityBCs
 from pylamp_tpu.core.grid import StaggeredGrid
+from pylamp_tpu.solvers.krylov import vdot
 
 
 # -- the weighted pressure Poisson operator  Khat = -div((1/w) grad) ----------
@@ -149,9 +150,9 @@ def _power_lambda_max(apply_binv_a, shape, dtype, iters: int = 12):
 
     def body(_, st):
         v, _ = st
-        v = v / jnp.sqrt(jnp.vdot(v, v))
+        v = v / jnp.sqrt(vdot(v, v))
         w = apply_binv_a(v)
-        return w - jnp.mean(w), jnp.vdot(v, w)
+        return w - jnp.mean(w), vdot(v, w)
 
     _, lam = lax.fori_loop(0, iters, body, (v0, jnp.asarray(1.0, dtype)))
     return jnp.abs(lam)

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from pylamp_tpu.core.bc import ThermalBCs
 from pylamp_tpu.core.grid import StaggeredGrid
 from pylamp_tpu.ops.energy import _dirichlet_masks, energy_operator
+from pylamp_tpu.solvers.krylov import vdot
 
 
 def _interleave_rows(a, b):
@@ -83,9 +84,9 @@ def _power_lambda_max(apply_binv_a, shape, dtype, iters: int = 12):
 
     def body(_, st):
         v, _ = st
-        v = v / jnp.sqrt(jnp.vdot(v, v))
+        v = v / jnp.sqrt(vdot(v, v))
         w = apply_binv_a(v)
-        return w, jnp.vdot(v, w)
+        return w, vdot(v, w)
 
     _, lam = lax.fori_loop(0, iters, body, (v0, jnp.asarray(1.0, dtype)))
     return jnp.abs(lam)

@@ -10,8 +10,7 @@ and the only cross-chip syncs are the dot-product `psum`s).
 - ``fgmres`` flexible right-preconditioned GMRES(m) for the Stokes saddle
   point.  Orthogonalization is classical Gram-Schmidt with
   reorthogonalization (CGS2): two batched reductions per iteration instead
-  of a sequential MGS sweep — the TPU-friendly choice with MGS-level
-  stability.
+  of a sequential MGS sweep, with MGS-level stability.
 
 All loops are ``lax.while_loop``s so the solvers jit once with static shapes
 and run without host round-trips.
@@ -35,10 +34,21 @@ class SolveInfo(NamedTuple):
 
 # -- pytree vector helpers --------------------------------------------------
 
+# Every solver dot product asks for full precision: on a GPU, XLA may
+# otherwise run f32 dots/tensordots in TF32 (~3 decimal digits), which
+# would quietly break the orthogonality of the CGS2 Krylov basis and the
+# Chebyshev/CG scalars.
+_HIGHEST = lax.Precision.HIGHEST
+
+
+def vdot(a, b):
+    """Full-precision dot product of two arrays."""
+    return jnp.vdot(a, b, precision=_HIGHEST)
+
+
 def tdot(a, b):
     """Global dot product over a pytree (real)."""
-    leaves = jax.tree.leaves(jax.tree.map(lambda x, y: jnp.vdot(x, y), a, b))
-    return sum(leaves)
+    return sum(jax.tree.leaves(jax.tree.map(vdot, a, b)))
 
 
 def tnorm(a):
@@ -178,14 +188,16 @@ def _basis_set(V, k, v):
 def _basis_dots(V, w):
     """h[j] = <V[j], w> for all j, batched (one fused reduction per leaf)."""
     def leaf(Vl, wl):
-        return jnp.tensordot(Vl, wl, axes=(tuple(range(1, Vl.ndim)), tuple(range(wl.ndim))))
+        return jnp.tensordot(Vl, wl, axes=(tuple(range(1, Vl.ndim)), tuple(range(wl.ndim))),
+                             precision=_HIGHEST)
     parts = jax.tree.leaves(jax.tree.map(leaf, V, w))
     return sum(parts)
 
 
 def _basis_comb(V, y):
     """sum_j y[j] * V[j]"""
-    return jax.tree.map(lambda Vl: jnp.tensordot(y, Vl, axes=(0, 0)), V)
+    return jax.tree.map(
+        lambda Vl: jnp.tensordot(y, Vl, axes=(0, 0), precision=_HIGHEST), V)
 
 
 def fgmres(
@@ -209,7 +221,7 @@ def fgmres(
 
     ``stagnation``: stop early when a whole restart cycle reduces the true
     residual by less than this factor — in particular when the working
-    precision's roundoff floor is reached (f32 on TPU; the mixed-precision
+    precision's roundoff floor is reached (f32; the mixed-precision
     wrapper in solvers/refine.py then takes over).
     """
     M = M or _identity

@@ -11,7 +11,7 @@ treating the other axis' coupling through the (full) diagonal — alternating
 the axis between sweeps ("xy" lines) handles mixed-aspect grids, e.g.
 geometric stretching in both directions.
 
-TPU shape: a line solve is a batch of independent tridiagonal systems (one
+Array shape: a line solve is a batch of independent tridiagonal systems (one
 per column), which this module solves with PARALLEL CYCLIC REDUCTION —
 ceil(log2 n) elementwise passes over the full array, fully vectorized over
 the batch axis, no sequential scan.  On a (ny, nx) level that is ~10 shifted

@@ -32,6 +32,7 @@ import jax.numpy as jnp
 from pylamp_tpu.core.bc import VelocityBCs
 from pylamp_tpu.core.grid import StaggeredGrid
 from pylamp_tpu.ops.stokes import stokes_operator
+from pylamp_tpu.solvers.krylov import vdot as _vdot
 from pylamp_tpu.solvers.stokes_solver import velocity_diagonals
 
 
@@ -220,7 +221,10 @@ def restrict_vy(f, bcs: VelocityBCs, cx: bool = True, cy: bool = True):
 
 # -- level structure -----------------------------------------------------------
 
-def _momentum_apply(vx, vy, eta_s, eta_n, grid, bcs, kbnd, halo_mesh=None):
+def momentum_apply(vx, vy, eta_s, eta_n, grid, bcs, kbnd, halo_mesh=None):
+    """Momentum-block application (the saddle operator at p = 0).
+    ``halo_mesh`` routes the apply through the explicit shard_map halo path
+    (parallel/halo_ops.py)."""
     rx, ry, _ = stokes_operator(
         vx, vy, jnp.zeros(grid.shape_center, vx.dtype), eta_s, eta_n, grid, bcs,
         kcont=1.0, kbnd=kbnd, halo_mesh=halo_mesh,
@@ -228,46 +232,57 @@ def _momentum_apply(vx, vy, eta_s, eta_n, grid, bcs, kbnd, halo_mesh=None):
     return rx, ry
 
 
-def _pallas_eligible(grid: StaggeredGrid, dtype) -> bool:
-    """The fused Pallas kernel covers the f32 TPU hot path on levels large
-    enough to amortize the per-block DMA (row count a multiple of 128)."""
-    try:
-        import jax
+def chebyshev_smooth(ex, ey, rx, ry, eta_s, eta_n, grid, bcs, kbnd, lam_max,
+                     iters, zero_init=False, emit_residual=False, diags=None,
+                     halo_mesh=None):
+    """``iters`` steps of the Chebyshev semi-iteration on D^-1 A e = D^-1 r
+    over [lam_max/4, lam_max] (hypre/ML-style smoothing interval), from
+    (ex, ey).  ``zero_init`` promises e = 0 on entry and skips the first
+    apply.  Returns (ex, ey), or with ``emit_residual`` also
+    (rx - A ex, ry - A ey).  ``diags``: the Jacobi diagonals D (default
+    ``velocity_diagonals``)."""
+    import jax.lax as _lax
 
-        platform = jax.devices()[0].platform
-    except Exception:  # pragma: no cover
-        return False
-    return (
-        dtype == jnp.float32
-        and grid.uniform
-        and grid.ny % 128 == 0
-        and grid.nx >= 256
-        and platform not in ("cpu", "gpu")
+    dvx, dvy = diags if diags is not None else velocity_diagonals(
+        eta_s, eta_n, grid, kbnd, bcs=bcs)
+
+    def apply(ex, ey):
+        return momentum_apply(ex, ey, eta_s, eta_n, grid, bcs, kbnd,
+                              halo_mesh=halo_mesh)
+
+    lmin = lam_max / 4.0
+    theta = 0.5 * (lam_max + lmin)
+    delta = 0.5 * (lam_max - lmin)
+    sigma1 = theta / delta
+
+    if zero_init:
+        # A(0) = 0 exactly (kbnd rows included): skip the apply
+        dx_ = rx / dvx / theta
+        dy_ = ry / dvy / theta
+    else:
+        ax, ay = apply(ex, ey)
+        dx_ = (rx - ax) / dvx / theta
+        dy_ = (ry - ay) / dvy / theta
+    ex = ex + dx_
+    ey = ey + dy_
+
+    def cbody(_, st):
+        ex, ey, dx_, dy_, ro = st
+        rho = 1.0 / (2.0 * sigma1 - ro)
+        ax, ay = apply(ex, ey)
+        dx_n = rho * ro * dx_ + (2.0 * rho / delta) * (rx - ax) / dvx
+        dy_n = rho * ro * dy_ + (2.0 * rho / delta) * (ry - ay) / dvy
+        return ex + dx_n, ey + dy_n, dx_n, dy_n, rho
+
+    # fori_loop keeps the traced graph one apply deep (unrolled coarse-level
+    # applies made solver compiles minutes-long)
+    ex, ey, _, _, _ = _lax.fori_loop(
+        0, iters - 1, cbody, (ex, ey, dx_, dy_, 1.0 / sigma1)
     )
-
-
-def momentum_apply(vx, vy, eta_s, eta_n, grid, bcs, kbnd, use_pallas=False,
-                   eta_prepped=None, halo_mesh=None, pallas_interpret=False):
-    """Momentum-block application; dispatches to the fused Pallas kernel on
-    eligible TPU levels (ops/pallas/stokes_kernel.py).  ``eta_prepped``
-    carries prep_eta_pallas output for solves that apply the operator many
-    times with frozen viscosity.  ``halo_mesh`` routes the apply through the
-    explicit shard_map halo path (parallel/halo_ops.py); with ``use_pallas``
-    the shard bodies run the fused per-shard stencil kernel
-    (ops/pallas/block_stencil_kernel.py) instead of jnp."""
-    if halo_mesh is not None:
-        rx, ry, _ = stokes_operator(
-            vx, vy, jnp.zeros(grid.shape_center, vx.dtype), eta_s, eta_n,
-            grid, bcs, kcont=1.0, kbnd=kbnd, halo_mesh=halo_mesh,
-            halo_pallas=use_pallas, pallas_interpret=pallas_interpret,
-        )
-        return rx, ry
-    if use_pallas and _pallas_eligible(grid, vx.dtype):
-        from pylamp_tpu.ops.pallas.stokes_kernel import momentum_apply_pallas
-
-        return momentum_apply_pallas(vx, vy, eta_s, eta_n, grid, bcs, kbnd,
-                                     eta_prepped=eta_prepped)
-    return _momentum_apply(vx, vy, eta_s, eta_n, grid, bcs, kbnd)
+    if not emit_residual:
+        return ex, ey
+    ax, ay = apply(ex, ey)
+    return ex, ey, rx - ax, ry - ay
 
 
 def _pressure_gradient(zp, grid, dtype, bcs: VelocityBCs | None = None):
@@ -357,10 +372,10 @@ def _power_lambda_max(apply_Binv_A, shape_x, shape_y, dtype, iters=12):
 
     def body(_, st):
         vx, vy, _ = st
-        nrm = jnp.sqrt(jnp.vdot(vx, vx) + jnp.vdot(vy, vy))
+        nrm = jnp.sqrt(_vdot(vx, vx) + _vdot(vy, vy))
         vx, vy = vx / nrm, vy / nrm
         wx, wy = apply_Binv_A(vx, vy)
-        lam = jnp.vdot(vx, wx) + jnp.vdot(vy, wy)
+        lam = _vdot(vx, wx) + _vdot(vy, wy)
         return wx, wy, lam
 
     # fori_loop keeps the traced graph one-apply deep (12 unrolled applies
@@ -423,10 +438,9 @@ def estimate_mg_lambdas(
     and floors the result at 0.995x the hint — the viscosity field moves
     at most half a cell per step (Courant bound), so lambda_max drifts
     slowly; the floor keeps the Chebyshev interval safe through the short
-    refresh.  The measured cost is dominated by per-level dispatch (~21 ms
-    at 1024^2/9 levels on v5e even warm), which is why the production step
-    refreshes on a cadence (SolverConfig.mg_lam_refresh_every) instead of
-    every step."""
+    refresh.  Its cost is per-level dispatch of many small applies, which
+    is why the production step refreshes on a cadence
+    (SolverConfig.mg_lam_refresh_every) instead of every step."""
     plan = coarsening_plan(grid, levels, semi_threshold=semicoarsen)
     nlev = len(plan) + 1
     dtype = eta_n.dtype
@@ -452,7 +466,7 @@ def estimate_mg_lambdas(
         dvx, dvy = velocity_diagonals(es, en, grids[l], kbnds[l], bcs=bcs)
 
         def binv_a(vx, vy, l=l, es=es, en=en, dvx=dvx, dvy=dvy):
-            ax, ay = _momentum_apply(vx, vy, es, en, grids[l], bcs, kbnds[l])
+            ax, ay = momentum_apply(vx, vy, es, en, grids[l], bcs, kbnds[l])
             return ax / dvx, ay / dvy
 
         if hint is None:
@@ -482,9 +496,6 @@ def make_velocity_mg(
     omega: float = 0.6,
     coarse_iters: int = 32,
     smoother: str = "chebyshev",
-    use_pallas: bool = True,
-    use_pallas_smoother: bool = True,
-    use_pallas_coarse: bool = True,
     scaled_transfers: bool = False,
     ls_damp: bool = False,
     mesh=None,
@@ -493,7 +504,6 @@ def make_velocity_mg(
     semicoarsen: float = 0.0,
     lam_max=None,
     eta_cap: float = 0.0,
-    pallas_interpret: bool = False,
 ):
     """Returns mg(rx, ry) -> (zx, zy): `cycles` handled by the caller.
 
@@ -594,17 +604,6 @@ def make_velocity_mg(
         else None
     )
 
-    # hoist the Pallas kernel's viscosity ghost/pad prep out of the hot
-    # applies: computed once per level per solve (prep_eta_pallas)
-    preps = [None] * nlev
-    if use_pallas:
-        from pylamp_tpu.ops.pallas.stokes_kernel import prep_eta_pallas
-
-        preps = [
-            prep_eta_pallas(es, en, g) if _pallas_eligible(g, dtype) else None
-            for (es, en), g in zip(etas, grids)
-        ]
-
     if mesh is not None and coarse_replicate > 0:
         from jax.sharding import NamedSharding, PartitionSpec
 
@@ -647,10 +646,7 @@ def make_velocity_mg(
 
             def binv_a(vx, vy, l=l, es=es, en=en, dvx=dvx, dvy=dvy):
                 ax, ay = momentum_apply(vx, vy, es, en, grids[l], bcs, kbnds[l],
-                                        use_pallas=use_pallas,
-                                        eta_prepped=preps[l],
-                                        halo_mesh=hmesh[l],
-                                        pallas_interpret=pallas_interpret)
+                                        halo_mesh=hmesh[l])
                 return ax / dvx, ay / dvy
 
             lam = _power_lambda_max(
@@ -660,126 +656,31 @@ def make_velocity_mg(
     elif lam_max is None:
         lam_max = []
 
-    # fused multi-iteration Pallas smoother (ops/pallas/cheb_kernel.py):
-    # per-level eligibility + hoisted viscosity pads.  pallas_call has no
-    # GSPMD rule, so the caller must pass use_pallas_smoother=False for
-    # sharded/vmapped solves (make_mg_preconditioner gates on mesh).
-    # Levels whose halo depth allows iters+1 applications also EMIT the
-    # post-sweep residual from the kernel (emit_residual), saving the
-    # V-cycle's separate momentum_apply HBM pass per level per cycle.
-    # fused PER-SHARD smoother under the explicit-halo engine (round-4
-    # verdict item 1: parallel/halo_smoother.py) — one deep-halo exchange
-    # per sweep, all iterations VMEM-resident per shard.  Frames built once
-    # per level per solve; per-call iters must fit the frame's halo depth.
-    halo_sm_preps = [None] * nlev  # (frames, h, can_emit)
-    if use_pallas_smoother and smoother == "chebyshev" and halo_mesh is not None:
-        from pylamp_tpu.parallel.halo_smoother import (
-            halo_smoother_eligible,
-            prep_halo_smoother,
-        )
-
-        deg = max(pre_smooth, post_smooth)
-        for l, ((es, en), g) in enumerate(zip(etas, grids)):
-            if hmesh[l] is None:
-                continue
-            if halo_smoother_eligible(g, hmesh[l], bcs, dtype, deg,
-                                      emit_residual=True,
-                                      interpret=pallas_interpret):
-                halo_sm_preps[l] = (
-                    prep_halo_smoother(es, en, g, hmesh[l], deg + 1), True)
-            elif halo_smoother_eligible(g, hmesh[l], bcs, dtype, deg,
-                                        interpret=pallas_interpret):
-                halo_sm_preps[l] = (
-                    prep_halo_smoother(es, en, g, hmesh[l], deg), False)
-
-    smoother_preps = [None] * nlev
-    smoother_emit = [False] * nlev
-    if use_pallas_smoother and smoother == "chebyshev" and halo_mesh is None:
-        from pylamp_tpu.ops.pallas.cheb_kernel import (
-            _pick_h,
-            prep_smoother_eta,
-            smoother_eligible,
-        )
-
-        deg = max(pre_smooth, post_smooth)
-        for l, ((es, en), g) in enumerate(zip(etas, grids)):
-            if smoother_eligible(g, dtype, deg, emit_residual=True):
-                smoother_preps[l] = prep_smoother_eta(
-                    es, en, g, h=_pick_h(deg + 1), n_out=4
-                )
-                smoother_emit[l] = True
-            elif smoother_eligible(g, dtype, deg):
-                smoother_preps[l] = prep_smoother_eta(es, en, g, h=_pick_h(deg))
-
     def smooth(l, ex, ey, rx, ry, iters, zero_init=False, emit_residual=False):
         """Returns (ex, ey), or (ex, ey, rx - A ex, ry - A ey) with
-        ``emit_residual`` (fused into the Pallas kernel where the level
-        supports it; one extra momentum_apply otherwise)."""
+        ``emit_residual``."""
         es, en = etas[l]
         dvx, dvy = diags[l]
         g = grids[l]
         kb = kbnds[l]
 
-        if halo_sm_preps[l] is not None:
-            frames, can_emit = halo_sm_preps[l]
-            hh = frames[2]
-            fuse_emit = emit_residual and can_emit
-            if 1 <= iters <= (hh - 1 if fuse_emit else hh):
-                from pylamp_tpu.parallel.halo_smoother import (
-                    chebyshev_smooth_halo,
-                )
-
-                out = chebyshev_smooth_halo(
-                    ex, ey, rx, ry, es, en, g, bcs, kb, lam_max[l], iters,
-                    hmesh[l], zero_init=zero_init, emit_residual=fuse_emit,
-                    interpret=pallas_interpret, prepped=frames,
-                )
-                if fuse_emit or not emit_residual:
-                    return out
-                ex, ey = out
-                ax, ay = momentum_apply(ex, ey, es, en, g, bcs, kb,
-                                        use_pallas=use_pallas,
-                                        eta_prepped=preps[l],
-                                        halo_mesh=hmesh[l],
-                                        pallas_interpret=pallas_interpret)
-                return ex, ey, rx - ax, ry - ay
-
-        if smoother_preps[l] is not None and 1 <= iters <= (
-            smoother_preps[l][5] - (1 if emit_residual and smoother_emit[l] else 0)
-        ):
-            from pylamp_tpu.ops.pallas.cheb_kernel import (
-                chebyshev_smooth_pallas,
-            )
-
-            if emit_residual and smoother_emit[l]:
-                return chebyshev_smooth_pallas(
-                    ex, ey, rx, ry, es, en, g, bcs, kb, lam_max[l], iters,
-                    zero_init=zero_init, prepped=smoother_preps[l],
-                    emit_residual=True,
-                )
-            ex, ey = chebyshev_smooth_pallas(
+        if smoother == "chebyshev":
+            return chebyshev_smooth(
                 ex, ey, rx, ry, es, en, g, bcs, kb, lam_max[l], iters,
-                zero_init=zero_init, prepped=smoother_preps[l],
+                zero_init=zero_init, emit_residual=emit_residual,
+                diags=diags[l], halo_mesh=hmesh[l],
             )
-            if emit_residual:
-                ax, ay = momentum_apply(ex, ey, es, en, g, bcs, kb,
-                                        use_pallas=use_pallas,
-                                        eta_prepped=preps[l],
-                                        halo_mesh=hmesh[l],
-                                        pallas_interpret=pallas_interpret)
-                return ex, ey, rx - ax, ry - ay
-            return ex, ey
 
         import jax.lax as _lax
+
+        def apply(ex, ey):
+            return momentum_apply(ex, ey, es, en, g, bcs, kb,
+                                  halo_mesh=hmesh[l])
 
         def _finish(ex, ey):
             if not emit_residual:
                 return ex, ey
-            ax, ay = momentum_apply(ex, ey, es, en, g, bcs, kb,
-                                    use_pallas=use_pallas,
-                                    eta_prepped=preps[l],
-                                    halo_mesh=hmesh[l],
-                                        pallas_interpret=pallas_interpret)
+            ax, ay = apply(ex, ey)
             return ex, ey, rx - ax, ry - ay
 
         if line_coeffs is not None:
@@ -792,11 +693,7 @@ def make_velocity_mg(
 
             def lsweep(ex, ey):
                 for ax, (svx, pvx, svy, pvy) in coeffs.items():
-                    axx, ayy = momentum_apply(ex, ey, es, en, g, bcs, kb,
-                                              use_pallas=use_pallas,
-                                              eta_prepped=preps[l],
-                                              halo_mesh=hmesh[l],
-                                        pallas_interpret=pallas_interpret)
+                    axx, ayy = apply(ex, ey)
                     ex = ex + omega * tridiag_pcr(svx, dvx, pvx, rx - axx,
                                                   axis=ax)
                     ey = ey + omega * tridiag_pcr(svy, dvy, pvy, ry - ayy,
@@ -808,96 +705,17 @@ def make_velocity_mg(
 
             return _finish(*_lax.fori_loop(0, iters, lbody, (ex, ey)))
 
-        if smoother == "jacobi":
-            def jbody(_, st):
-                ex, ey = st
-                ax, ay = momentum_apply(ex, ey, es, en, g, bcs, kb,
-                                        use_pallas=use_pallas,
-                                        eta_prepped=preps[l],
-                                        halo_mesh=hmesh[l],
-                                        pallas_interpret=pallas_interpret)
-                return ex + omega * (rx - ax) / dvx, ey + omega * (ry - ay) / dvy
+        # damped Jacobi
+        def jbody(_, st):
+            ex, ey = st
+            ax, ay = apply(ex, ey)
+            return ex + omega * (rx - ax) / dvx, ey + omega * (ry - ay) / dvy
 
-            return _finish(*_lax.fori_loop(0, iters, jbody, (ex, ey)))
-
-        # Chebyshev semi-iteration on D^-1 A over [lmax/4, lmax]
-        # (hypre/ML-style smoothing interval).  fori_loop keeps the traced
-        # graph one apply deep (32 unrolled coarse-level applies per
-        # V-cycle made solver compiles minutes-long).
-        lmax = lam_max[l]
-        lmin = lmax / 4.0
-        theta = 0.5 * (lmax + lmin)
-        delta = 0.5 * (lmax - lmin)
-        sigma1 = theta / delta
-
-        if zero_init:
-            # A(0) = 0 exactly (kbnd rows included): skip the apply
-            dx_ = rx / dvx / theta
-            dy_ = ry / dvy / theta
-        else:
-            ax, ay = momentum_apply(ex, ey, es, en, g, bcs, kb,
-                                    use_pallas=use_pallas,
-                                    eta_prepped=preps[l],
-                                    halo_mesh=hmesh[l],
-                                        pallas_interpret=pallas_interpret)
-            dx_ = (rx - ax) / dvx / theta
-            dy_ = (ry - ay) / dvy / theta
-        ex = ex + dx_
-        ey = ey + dy_
-        rho_old = 1.0 / sigma1
-
-        def cbody(_, st):
-            ex, ey, dx_, dy_, ro = st
-            rho = 1.0 / (2.0 * sigma1 - ro)
-            ax, ay = momentum_apply(ex, ey, es, en, g, bcs, kb,
-                                    use_pallas=use_pallas,
-                                    eta_prepped=preps[l],
-                                    halo_mesh=hmesh[l],
-                                        pallas_interpret=pallas_interpret)
-            dx_n = rho * ro * dx_ + (2.0 * rho / delta) * (rx - ax) / dvx
-            dy_n = rho * ro * dy_ + (2.0 * rho / delta) * (ry - ay) / dvy
-            return ex + dx_n, ey + dy_n, dx_n, dy_n, rho
-
-        ex, ey, _, _, _ = _lax.fori_loop(
-            0, iters - 1, cbody, (ex, ey, dx_, dy_, rho_old)
-        )
-        return _finish(ex, ey)
-
-    # fused coarse sub-V-cycle (ops/pallas/coarse_vcycle_kernel.py):
-    # every level below the fused-smoother cutoff in ONE pallas_call —
-    # the roofline's dispatch-bound tail (round-4 verdict item 4).
-    fused_coarse = None
-    if (use_pallas_smoother and use_pallas_coarse and mesh is None
-            and halo_mesh is None
-            and smoother == "chebyshev" and len(lam_max) == nlev):
-        try:
-            platform = __import__("jax").devices()[0].platform
-        except Exception:  # pragma: no cover
-            platform = "cpu"
-        if pallas_interpret or platform not in ("cpu", "gpu"):
-            from pylamp_tpu.ops.pallas.coarse_vcycle_kernel import (
-                CoarseVcyclePrep,
-                coarse_fuse_start,
-            )
-
-            fs = coarse_fuse_start(grids, plan, bcs, dtype, smoother,
-                                   scaled_transfers, ls_damp)
-            if fs is not None:
-                fused_coarse = (fs, CoarseVcyclePrep(
-                    grids[fs:], etas[fs:], kbnds[fs:], lam_max[fs:], bcs,
-                    pre_smooth, post_smooth, coarse_iters))
+        return _finish(*_lax.fori_loop(0, iters, jbody, (ex, ey)))
 
     def vcycle(l, rx, ry, emit=False):
         """``emit``: also return (rx - A ex, ry - A ey) of the cycle's
-        result (for multi-cycle callers; rides the post-smooth's fused
-        residual where the level supports it)."""
-        if fused_coarse is not None and l == fused_coarse[0] and not emit:
-            from pylamp_tpu.ops.pallas.coarse_vcycle_kernel import (
-                coarse_vcycle_pallas,
-            )
-
-            return coarse_vcycle_pallas(rx, ry, fused_coarse[1],
-                                        interpret=pallas_interpret)
+        result (for multi-cycle callers)."""
         if l == nlev - 1:
             ex = jnp.zeros_like(rx)
             ey = jnp.zeros_like(ry)
@@ -905,7 +723,7 @@ def make_velocity_mg(
                           emit_residual=emit)
         ex = jnp.zeros_like(rx)
         ey = jnp.zeros_like(ry)
-        # pre-smooth + the restriction-input residual in one kernel pass
+        # pre-smooth, emitting the residual the restriction takes
         ex, ey, rfx, rfy = smooth(l, ex, ey, rx, ry, pre_smooth,
                                   zero_init=True, emit_residual=True)
         pcx, pcy = plan[l]
@@ -927,10 +745,7 @@ def make_velocity_mg(
             pey = prolong_vy(ecy, bcs, cx=pcx, cy=pcy)
         if ls_damp:
             aex, aey = momentum_apply(pex, pey, *etas[l], grids[l], bcs,
-                                      kbnds[l], use_pallas=use_pallas,
-                                      eta_prepped=preps[l],
-                                      halo_mesh=hmesh[l],
-                                        pallas_interpret=pallas_interpret)
+                                      kbnds[l], halo_mesh=hmesh[l])
             # alpha = <r, Ae>/<Ae, Ae>, computed on Ae/s with
             # s = max|Ae| so the squared sums cannot overflow f32 (momentum
             # entries reach ~1e15 at mantle viscosities; their squares do
@@ -940,8 +755,8 @@ def make_velocity_mg(
                 jnp.finfo(rx.dtype).tiny,
             )
             uex, uey = aex / s, aey / s
-            num = jnp.vdot(rfx, uex) + jnp.vdot(rfy, uey)
-            den = s * (jnp.vdot(uex, uex) + jnp.vdot(uey, uey))
+            num = _vdot(rfx, uex) + _vdot(rfy, uey)
+            den = s * (_vdot(uex, uex) + _vdot(uey, uey))
             alpha = num / jnp.maximum(den, jnp.finfo(rx.dtype).tiny)
             ex = ex + alpha * pex
             ey = ey + alpha * pey
@@ -969,9 +784,6 @@ def make_mg_preconditioner(
     post_smooth: int = 2,
     omega: float = 0.6,
     smoother: str = "chebyshev",
-    use_pallas: bool = True,
-    use_pallas_smoother: bool = True,
-    use_pallas_coarse: bool = True,
     scaled_transfers: bool = False,
     ls_damp: bool = False,
     mesh=None,
@@ -985,7 +797,6 @@ def make_mg_preconditioner(
     velocity_inner_tol: float = 3e-2,
     velocity_inner_method: str = "fgmres",
     eta_cap: float = 0.0,
-    pallas_interpret: bool = False,
     al_gamma: float = 0.0,
 ):
     """Block upper-triangular preconditioner for the full Stokes system.
@@ -1016,17 +827,10 @@ def make_mg_preconditioner(
     mg = make_velocity_mg(
         eta_s, eta_n, grid, bcs, kbnd,
         levels=levels, pre_smooth=pre_smooth, post_smooth=post_smooth, omega=omega,
-        smoother=smoother, use_pallas=use_pallas,
-        # no GSPMD/batching rule for pallas_call: GSPMD-sharded solves take
-        # jnp; under the explicit-halo engine the fused smoother runs PER
-        # SHARD inside shard_map (parallel/halo_smoother.py)
-        use_pallas_smoother=use_pallas_smoother
-        and (mesh is None or halo_mesh is not None),
-        use_pallas_coarse=use_pallas_coarse,
+        smoother=smoother,
         scaled_transfers=scaled_transfers, ls_damp=ls_damp,
         mesh=mesh, coarse_replicate=coarse_replicate, halo_mesh=halo_mesh,
         semicoarsen=semicoarsen, lam_max=lam_max, eta_cap=eta_cap,
-        pallas_interpret=pallas_interpret,
     )
     dtype = eta_n.dtype
 
@@ -1068,9 +872,7 @@ def make_mg_preconditioner(
         def vel_solve(rvx, rvy):
             def vop(u):
                 ax, ay = momentum_apply(u[0], u[1], eta_s, eta_n, grid, bcs,
-                                        kbnd, use_pallas=use_pallas,
-                                        halo_mesh=halo_mesh,
-                                        pallas_interpret=pallas_interpret)
+                                        kbnd, halo_mesh=halo_mesh)
                 if gd is not None:
                     # inner Krylov targets the AUGMENTED velocity block
                     # A + gamma D^T(eta_n D), preconditioned by the
@@ -1107,8 +909,7 @@ def make_mg_preconditioner(
         def vel_solve(rvx, rvy):
             # first cycle starts from zero: its residual IS (rvx, rvy).
             # Multi-cycle: each non-final cycle's post-smooth emits the
-            # running residual (fused in the Pallas smoother where
-            # supported) — no separate momentum_apply between cycles.
+            # running residual for the next cycle.
             if cycles == 1:
                 return mg(rvx, rvy)
             zx, zy, rfx, rfy = mg(rvx, rvy, emit=True)

@@ -1,10 +1,9 @@
 """Mixed-precision iterative refinement.
 
-TPU v5e has no hardware float64 (it is software-emulated and slow), but the
-accuracy bar is 1e-8 *relative residual* (BASELINE.json), which is below the
-float32 roundoff floor at 1024^2 (measured floor ~2e-4 relative).  The
-classic fix (SURVEY.md §7.3 item 5): keep the hot Krylov/multigrid path in
-f32 and wrap it in float64 refinement —
+The accuracy bar is 1e-8 *relative residual* (BASELINE.json), which is
+below the float32 roundoff floor at 1024^2 (measured floor ~2e-4
+relative).  The classic fix (SURVEY.md §7.3 item 5): keep the hot
+Krylov/multigrid path in f32 and wrap it in float64 refinement —
 
     repeat:  r = b - A x      (one f64 operator application)
              solve A dx ~= r  (full f32 inner solve, tol ~ its floor)
@@ -12,8 +11,8 @@ f32 and wrap it in float64 refinement —
 
 Each refinement multiplies the residual by ~the inner solve's relative
 accuracy (1e-3..1e-4), so 2-4 refinements reach 1e-8.  The f64 operator is
-the SAME matrix-free stencil code, just applied to f64-cast inputs; it runs
-emulated but only once per refinement.
+the SAME matrix-free stencil code, just applied to f64-cast inputs, once
+per refinement.
 """
 from __future__ import annotations
 
@@ -23,7 +22,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from pylamp_tpu.solvers.krylov import SolveInfo, tsub
+from pylamp_tpu.solvers.krylov import SolveInfo, tsub, vdot
 
 
 def _cast(tree, dtype):
@@ -33,12 +32,10 @@ def _cast(tree, dtype):
 def _norm_f32(tree):
     """||tree|| accumulated in f32 with overflow-safe pre-scaling.
 
-    The emulated-f64 reduction costs ~13 ms at 1024^2 on v5e (vs ~0.2 ms
-    in f32) and the norm only GATES the refinement loop — 1e-7-relative
-    accuracy is ample for comparing against tol*||b||.  Momentum entries
-    can reach ~1e15 (squares overflow f32), so each leaf is scaled by its
-    own max first; the per-leaf max is an f64 comparison reduction, far
-    cheaper than the emulated multiply-accumulate of a dot product."""
+    The norm only GATES the refinement loop — 1e-7-relative accuracy is
+    ample for comparing against tol*||b||.  Momentum entries can reach
+    ~1e15 (squares overflow f32), so each leaf is scaled by its own max
+    first."""
     f32 = jnp.float32
     leaves = jax.tree.leaves(tree)
     sqs = []
@@ -46,7 +43,7 @@ def _norm_f32(tree):
         amax = jnp.max(jnp.abs(l))
         s = jnp.where(amax > 0, amax, 1.0)
         ln = (l * (1.0 / s)).astype(f32)
-        sqs.append((jnp.vdot(ln, ln).astype(jnp.float64), s))
+        sqs.append((vdot(ln, ln).astype(jnp.float64), s))
     total = sum(sq * s * s for sq, s in sqs)
     return jnp.sqrt(total)
 
@@ -77,11 +74,10 @@ def refine(
     bnorm = _norm_f32(b64)
     target = tol * bnorm
 
-    # One f64 operator application per refinement (the emulated-f64 stencil
-    # is the dominant cost at 1024^2): the residual computed at the top of
-    # each iteration doubles as the convergence check for the previous one.
-    # Norms accumulate in f32 (_norm_f32): they only gate the loop, and the
-    # emulated-f64 dot product alone cost ~13 ms per refinement on v5e.
+    # One f64 operator application per refinement: the residual computed
+    # at the top of each iteration doubles as the convergence check for
+    # the previous one.  Norms accumulate in f32 (_norm_f32): they only
+    # gate the loop.
 
     def cond(st):
         _, _, res, k, _ = st

@@ -177,13 +177,11 @@ def solve_stokes_mixed(
     x0=None,
     make_preconditioner: Callable | None = None,
     halo_mesh=None,
-    use_pallas_apply: bool = False,
-    pallas_interpret: bool = False,
     al_gamma: float = 0.0,
 ) -> StokesSolution:
     """Mixed-precision Stokes solve: f32 FGMRES+MG inner solves inside f64
     iterative refinement (solvers/refine.py) — reaches 1e-8 relative
-    residual on TPU where f32 alone floors at ~1e-4 (SURVEY.md §7.3 item 5).
+    residual where f32 alone floors at ~1e-4 (SURVEY.md §7.3 item 5).
 
     Inputs may be f32 or f64; the system is DEFINED by the f64 casts (the
     same stencil), and the reported residual is measured in f64.
@@ -228,46 +226,12 @@ def solve_stokes_mixed(
         b64 = augment_rhs(b64, eta_n64, grid, bcs, al_gamma, kcont, f64)
         _gd32 = make_grad_div(eta_n32, grid, bcs, al_gamma, f32)
 
-    _pallas_op = False
-    if use_pallas_apply and halo_mesh is None:
-        from pylamp_tpu.ops.pallas.stokes_kernel import saddle_apply_eligible
-
-        _pallas_op = saddle_apply_eligible(grid, f32, bcs)
-
-    if halo_mesh is not None:
-        # per-shard fused stencil inside the explicit-halo shard_map bodies
-        # (block_stencil_kernel; gated by its own per-block eligibility)
-        def op32(u):
-            vx, vy, p = u
-            return stokes_operator(
-                vx, vy, p, eta_s32, eta_n32, grid, bcs, kcont=kcont32,
-                kbnd=kbnd32, halo_mesh=halo_mesh,
-                halo_pallas=use_pallas_apply,
-                pallas_interpret=pallas_interpret,
-            )
-    elif _pallas_op:
-        # fused full-saddle Pallas kernel for the FGMRES outer applies: the
-        # jnp stencil lowers to many small kernels (1.45 ms vs the ~0.05 ms
-        # HBM bound at 1024^2 on v5e); viscosity pads are hoisted per solve
-        from pylamp_tpu.ops.pallas.stokes_kernel import (
-            prep_eta_pallas,
-            saddle_apply_pallas,
+    def op32(u):
+        vx, vy, p = u
+        return stokes_operator(
+            vx, vy, p, eta_s32, eta_n32, grid, bcs, kcont=kcont32,
+            kbnd=kbnd32, halo_mesh=halo_mesh,
         )
-
-        _eta_prep = prep_eta_pallas(eta_s32, eta_n32, grid)
-
-        def op32(u):
-            return saddle_apply_pallas(
-                u[0], u[1], u[2], eta_s32, eta_n32, grid, bcs,
-                kcont32, kbnd32, eta_prepped=_eta_prep,
-            )
-    else:
-        def op32(u):
-            vx, vy, p = u
-            return stokes_operator(
-                vx, vy, p, eta_s32, eta_n32, grid, bcs, kcont=kcont32,
-                kbnd=kbnd32, halo_mesh=halo_mesh,
-            )
 
     if al_gamma > 0.0:
         from pylamp_tpu.solvers.al import augment_saddle_op

@@ -32,7 +32,7 @@ Two ingredients, both load-bearing (each was isolated by measurement):
    compensations destabilize simultaneous sweeps.  Braess & Sarazin (1997)
    prove the smoothing property for alpha >~ 1.
 
-TPU-native design: everything is dense static-shaped stencil arithmetic
+Design: everything is dense static-shaped stencil arithmetic
 (no scatter/gather, no matrix assembly), jit/GSPMD-shardable, with rolled
 `lax.fori_loop` sweep loops to keep compile time bounded.
 

@@ -1,8 +1,8 @@
 """Atomic JSON artifact writing for validation/bench evidence files.
 
-Round-4 verdict item 5: ``validation/bench_sticky_air.json`` was committed
-as a 0-byte file while three documents cited it as evidence.  Every artifact
-writer now goes through :func:`write_json_artifact`, which serializes first,
+An evidence file was once committed as a 0-byte file while documents cited
+it.  Every artifact writer goes through :func:`write_json_artifact`, which
+serializes first,
 refuses empty payloads, writes to a temp file in the same directory, fsyncs,
 and renames into place — an interrupted run can no longer leave a truncated
 or empty artifact behind.

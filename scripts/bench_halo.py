@@ -1,11 +1,11 @@
 """A/B the whole domain-decomposed step: GSPMD auto-partitioning vs the
 explicit shard_map + ppermute halo path (parallel/halo_ops.py).
 
-Runs on the 8-virtual-device CPU mesh (the environment exposes one real TPU
-chip, so multi-chip placement is emulated the same way the distributed test
-tier does — SURVEY.md §4).  CPU collectives ride shared memory, so the
-numbers probe partitioning/communication *structure* (how many reshards XLA
-inserts, how the halo pattern schedules), not ICI bandwidth.
+Runs on the 8-virtual-device CPU mesh, the way the distributed test tier
+does (SURVEY.md §4).  CPU collectives ride shared memory, so the numbers
+probe partitioning/communication *structure* (how many reshards XLA
+inserts, how the halo pattern schedules), not interconnect bandwidth, and
+no CPU time here is a device metric.
 
 Usage: python scripts/bench_halo.py [--nx 256] [--steps 3]
 """

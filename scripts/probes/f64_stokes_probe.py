@@ -1,5 +1,5 @@
-"""Time the emulated-f64 saddle apply vs the f32 applies at 1024^2 on TPU,
-and count refinement passes in a production-like solve."""
+"""Time the f64 saddle apply vs the f32 applies at 1024^2, and count
+refinement passes in a production-like solve."""
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.join(_os.path.dirname(__file__), "..", ".."))
 

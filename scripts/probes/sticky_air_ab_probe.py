@@ -116,10 +116,8 @@ VARIANTS = {
                     dict(restart=60, al_gamma=10.0)),
     "al_g10_ii16": (dict(BASE, al_gamma=10.0),
                     dict(restart=60, al_gamma=10.0)),
-    # TPU spec round 2: preset 1.202s/144it; g10_ii16 0.635s/66it and
-    # g10_ii24 0.645s/43it tie (total inner V-cycles ~equal) — push the
-    # per-inner-iteration cost (fcg short recurrence) and the smoothing
-    # depth frontier between pre4 (worse) and pre8.
+    # the per-inner-iteration cost (fcg short recurrence) and the
+    # smoothing depth frontier between pre4 and pre8
     "al_g10_ii16_fcg": (dict(BASE, al_gamma=10.0,
                              velocity_inner_method="fcg"),
                         dict(restart=60, al_gamma=10.0)),
@@ -133,8 +131,7 @@ VARIANTS = {
                          dict(restart=60, al_gamma=10.0)),
     "al_g10_ii12_t3e3": (dict(BASE, al_gamma=10.0, velocity_inner_iters=12),
                          dict(restart=60, al_gamma=10.0)),
-    # TPU spec round 3: pre6+ii20 won round 2 at 0.592s/60it (pre8+ii16
-    # 0.632, pre8+ii24 0.645; fcg inner loses badly) — bracket it.
+    # bracket pre6 + ii20
     "al_g10_ii16_pre6": (dict(BASE, al_gamma=10.0, pre_smooth=6,
                               post_smooth=6),
                          dict(restart=60, al_gamma=10.0)),
@@ -165,7 +162,7 @@ for name in names:
             eta_s, eta_n, rho_vx, rho_vy, 0.0, 9.81, grid,
             phys.velocity_bcs, tol=1e-8, inner_tol=1e-4,
             maxiter=3000, max_refinements=6, x0=x0,
-            make_preconditioner=mk, use_pallas_apply=True, **skw)
+            make_preconditioner=mk, **skw)
         return sol.vx, sol.info.iterations, sol.info.converged, sol.info.residual
 
     solvers[name] = jax.jit(run)

@@ -1,8 +1,8 @@
 """Micro-profile of the Stokes phase at the bench configuration.
 
 Times the building blocks of the mixed-precision Stokes solve separately
-(f32 saddle apply — Pallas and jnp, MG preconditioner application,
-emulated-f64 saddle apply + norm, per-level lambda_max power iteration,
+(f32 saddle apply, MG preconditioner application, f64 saddle apply +
+norm, per-level lambda_max power iteration,
 FGMRES orthogonalization cost) and runs one full instrumented
 solve_stokes_mixed so optimization effort goes where the milliseconds are
 (SURVEY.md §5 tracing row).
@@ -24,10 +24,6 @@ jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 
-from pylamp_tpu.utils.cache import enable_persistent_cache
-
-enable_persistent_cache()
-
 
 def timeit(f, *args, n=20):
     out = f(*args)
@@ -45,6 +41,10 @@ def main():
     ap.add_argument("--plain-tuning", action="store_true",
                     help="default SolverConfig instead of the bench tuning")
     args = ap.parse_args()
+
+    from pylamp_tpu.utils.cache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     from functools import partial
 
@@ -93,22 +93,6 @@ def main():
         return stokes_operator(vx, vy, p, eta_s32, eta_n32, grid, vbc,
                                kcont=kcont32, kbnd=kbnd32)
 
-    from pylamp_tpu.ops.pallas.stokes_kernel import (
-        prep_eta_pallas,
-        saddle_apply_eligible,
-        saddle_apply_pallas,
-    )
-
-    op32p = None
-    if saddle_apply_eligible(grid, f32, vbc):
-        _prep = prep_eta_pallas(eta_s32, eta_n32, grid)
-
-        @jax.jit
-        def op32p(u):
-            return saddle_apply_pallas(u[0], u[1], u[2], eta_s32, eta_n32,
-                                       grid, vbc, kcont32, kbnd32,
-                                       eta_prepped=_prep)
-
     @jax.jit
     def op64(u):
         vx, vy, p = u
@@ -129,8 +113,6 @@ def main():
         make_mg_preconditioner,
         levels=solver.mg_levels, cycles=solver.mg_cycles,
         pre_smooth=solver.mg_pre_smooth, post_smooth=solver.mg_post_smooth,
-        use_pallas=solver.use_pallas,
-        use_pallas_smoother=solver.use_pallas_smoother,
         schur=solver.schur,
     )
     M32 = mk(eta_s32, eta_n32, grid, kcont32, kbnd32, bcs=vbc)
@@ -186,7 +168,7 @@ def main():
             tol=solver.stokes_tol, inner_tol=solver.inner_tol,
             restart=solver.stokes_restart, maxiter=solver.stokes_maxiter,
             max_refinements=solver.max_refinements, x0=x0,
-            make_preconditioner=mk, use_pallas_apply=solver.use_pallas_apply,
+            make_preconditioner=mk,
         )
 
     x0 = (state.vx, state.vy, state.p)
@@ -202,7 +184,7 @@ def main():
         "nx": args.nx,
         "iters": float(sol.info.iterations),
         "solve_ms": round(solve_ms, 2),
-        "op32_jnp_ms": round(timeit(op32, u32) * 1e3, 3),
+        "op32_ms": round(timeit(op32, u32) * 1e3, 3),
         "mg_precond_ms": round(timeit(Mj, u32) * 1e3, 3),
         "op64_ms": round(timeit(op64, u64, n=5) * 1e3, 3),
         "resid64_norm_ms": round(timeit(resid64, u64, n=5) * 1e3, 3),
@@ -210,8 +192,6 @@ def main():
         "lam_cold_ms": lam_cold_ms,
         "lam_warm_ms": lam_warm_ms,
     }
-    if op32p is not None:
-        res["op32_pallas_ms"] = round(timeit(op32p, u32) * 1e3, 3)
     print(json.dumps(res))
 
 

@@ -13,10 +13,6 @@ import jax
 
 jax.config.update("jax_enable_x64", True)
 
-from pylamp_tpu.utils.cache import enable_persistent_cache
-
-enable_persistent_cache()
-
 import dataclasses
 import numpy as np
 import jax.numpy as jnp
@@ -34,6 +30,10 @@ from pylamp_tpu.models.step import make_step
 
 
 def main(nx=64, max_time=0.25, dtype=jnp.float32):
+    from pylamp_tpu.utils.cache import enable_persistent_cache
+    from pylamp_tpu.utils.device import device_fields, gpu_name_and_power_limit
+
+    enable_persistent_cache()
     cfg = blankenbach_case1a(nx=nx, ny=nx, max_steps=100000, max_time=max_time)
     cfg = dataclasses.replace(
         cfg,
@@ -81,7 +81,8 @@ def main(nx=64, max_time=0.25, dtype=jnp.float32):
         "nu_top": nu, "nu_ref": BLANKENBACH_1A_NU, "nu_rel_err": err_nu,
         "vrms": vr, "vrms_ref": BLANKENBACH_1A_VRMS, "vrms_rel_err": err_vr,
         "wall_s": round(time.time() - t0, 1),
-        "device": str(jax.devices()[0]),
+        "device": device_fields(),
+        "card": gpu_name_and_power_limit(),
     })
     print(f"wrote {out}", flush=True)
     return nu, vr

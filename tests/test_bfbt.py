@@ -151,7 +151,7 @@ def test_saddle_solve_sharp_contrast():
 
     # production config on the cell-sharp field
     M = make_mg_preconditioner(
-        eta_s, eta_n, grid, kcont, kbnd, bcs=bcs, use_pallas=False,
+        eta_s, eta_n, grid, kcont, kbnd, bcs=bcs,
         schur="mass", velocity_inner_iters=8,
     )
     x_mass, info = fgmres(op, b, x0, M=M, tol=1e-8, restart=40, maxiter=800)
@@ -172,7 +172,7 @@ def test_saddle_solve_sharp_contrast():
     sols = {}
     for schur in ("mass", "wbfbt"):
         M = make_mg_preconditioner(
-            es_s, en_s, grid, kc_s, kb_s, bcs=bcs, use_pallas=False,
+            es_s, en_s, grid, kc_s, kb_s, bcs=bcs,
             schur=schur, velocity_inner_iters=8,
         )
         x, info = fgmres(op_s, b_s, x0, M=M, tol=1e-8, restart=40, maxiter=800)

@@ -1,5 +1,5 @@
 """Dense bucketed marker engine vs the flat reference implementation
-(equivalence to fp tolerance; the bucket engine is the TPU hot path)."""
+(equivalence to fp tolerance; the bucket engine is the production path)."""
 import numpy as np
 import jax
 import jax.numpy as jnp

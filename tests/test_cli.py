@@ -1,6 +1,6 @@
 """CLI precision wiring.
 
-Regression test for a silent-truncation bug caught on v5e: the run
+Regression test for a silent-truncation bug: the run
 subcommand only enabled jax x64 when --x64/--f32 was passed, so the
 DEFAULT mixed-precision path built an "f64" state that truncated to f32
 and the refinement loop floored at ~6e-7 relative — every step warned

@@ -10,9 +10,9 @@ from pylamp_tpu.core.grid import StaggeredGrid
 from pylamp_tpu.core.bc import VelocityBCs
 from pylamp_tpu.solvers.krylov import tnorm
 from pylamp_tpu.solvers.mg import (
-    _momentum_apply,
     make_mg_preconditioner,
     make_velocity_mg,
+    momentum_apply,
     prolong_vx,
     prolong_vy,
     restrict_vx,
@@ -44,6 +44,32 @@ def test_transfer_adjointness(P, R, cshape, fshape, slip):
     assert abs(lhs - rhs) < 1e-12 * max(1.0, abs(lhs))
 
 
+def _probe(fn, shape):
+    """The matrix of the linear map ``fn`` on arrays of ``shape``, by
+    applying it to every unit vector."""
+    import jax
+
+    n = int(np.prod(shape))
+    cols = jax.vmap(lambda e: fn(e.reshape(shape)).ravel())(jnp.eye(n))
+    return np.asarray(cols).T
+
+
+@pytest.mark.parametrize("bc", ["free_slip", "no_slip"])
+@pytest.mark.parametrize("ny,nx", [(16, 24), (32, 32)])
+def test_restriction_is_scaled_prolongation_transpose(bc, ny, nx):
+    """As matrices built by probing: R = P^T / 4 on both velocity
+    lattices (BC ghost folding and the Dirichlet projection included)."""
+    bcs = VelocityBCs(top=bc, bottom=bc, left=bc, right=bc)
+    for P, R, fshape, cshape in (
+        (prolong_vx, restrict_vx, (ny, nx + 1), (ny // 2, nx // 2 + 1)),
+        (prolong_vy, restrict_vy, (ny + 1, nx), (ny // 2 + 1, nx // 2)),
+    ):
+        Pm = _probe(lambda c: P(c, bcs), cshape)
+        Rm = _probe(lambda f: R(f, bcs), fshape)
+        assert Pm.shape == (int(np.prod(fshape)), int(np.prod(cshape)))
+        np.testing.assert_allclose(Rm, Pm.T / 4.0, atol=1e-15)
+
+
 def test_vcycle_contracts_isoviscous():
     grid = StaggeredGrid(nx=64, ny=64, lx=1.0, ly=1.0)
     bcs = VelocityBCs()
@@ -58,10 +84,10 @@ def test_vcycle_contracts_isoviscous():
     ey = jnp.zeros_like(ry)
     r0 = float(tnorm((rx, ry)))
     for _ in range(5):
-        ax, ay = _momentum_apply(ex, ey, eta_s, eta_n, grid, bcs, kbnd)
+        ax, ay = momentum_apply(ex, ey, eta_s, eta_n, grid, bcs, kbnd)
         dx_, dy_ = mg(rx - ax, ry - ay)
         ex, ey = ex + dx_, ey + dy_
-    ax, ay = _momentum_apply(ex, ey, eta_s, eta_n, grid, bcs, kbnd)
+    ax, ay = momentum_apply(ex, ey, eta_s, eta_n, grid, bcs, kbnd)
     rel = float(tnorm((rx - ax, ry - ay))) / r0
     assert rel < 5e-3, rel  # ~0.3/cycle contraction or better
 

@@ -1,4 +1,4 @@
-"""End-to-end timestep parity: our fully iterative TPU-style step vs a
+"""End-to-end timestep parity: our fully iterative matrix-free step vs a
 reference-style step that uses the SAME marker pipeline but solves Stokes
 with the oracle's assembled matrix + direct spsolve (the reference's method,
 SURVEY.md §3.2).  This is the '1e-8 relative residual vs the CPU reference'

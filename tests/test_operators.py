@@ -45,6 +45,74 @@ def test_stokes_operator_matches_oracle(slip, nx, ny):
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
 
 
+def _seam_fields(grid, periodic, seed):
+    """Random f64 fields; under periodic side walls vx and eta_s carry equal
+    values in columns 0 and nx (one physical node)."""
+    rng = np.random.default_rng(seed)
+    eta_s = np.exp(rng.normal(size=grid.shape_corner) * 2.0)
+    eta_n = np.exp(rng.normal(size=grid.shape_center) * 2.0)
+    vx = rng.normal(size=grid.shape_vx)
+    vy = rng.normal(size=grid.shape_vy)
+    p = rng.normal(size=grid.shape_center)
+    if periodic:
+        vx[:, -1] = vx[:, 0]
+        eta_s[:, -1] = eta_s[:, 0]
+    return eta_s, eta_n, vx, vy, p
+
+
+def _apply_bcs(slip, periodic):
+    side = "periodic" if periodic else "no_slip"
+    return VelocityBCs(top=slip, bottom="free_slip", left=side,
+                       right="periodic" if periodic else slip)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("slip", ["free_slip", "no_slip"])
+@pytest.mark.parametrize("nx,ny", [(16, 16), (24, 32)])
+def test_momentum_apply_matches_oracle(slip, nx, ny, periodic):
+    """The MG momentum-block apply (solvers/mg.py) == the oracle's momentum
+    rows at zero pressure."""
+    from pylamp_tpu.solvers.mg import momentum_apply
+
+    grid = StaggeredGrid(nx=nx, ny=ny, lx=1.3, ly=0.9)
+    bcs = _apply_bcs(slip, periodic)
+    eta_s, eta_n, vx, vy, _ = _seam_fields(grid, periodic, seed=11)
+    kbnd = 7.5
+
+    oracle = StokesOracle(nx, ny, grid.lx, grid.ly, bcs)
+    A = oracle.assemble(eta_s, eta_n, kcont=1.0, kbnd=kbnd)
+    want = A @ oracle.pack(vx, vy, np.zeros(grid.shape_center))
+    rx, ry = momentum_apply(jnp.asarray(vx), jnp.asarray(vy),
+                            jnp.asarray(eta_s), jnp.asarray(eta_n), grid, bcs,
+                            kbnd)
+    got = np.concatenate([np.asarray(rx).ravel(), np.asarray(ry).ravel()])
+    want = want[: got.size]
+    np.testing.assert_allclose(got, want, rtol=1e-12,
+                               atol=1e-12 * np.max(np.abs(want)))
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("slip", ["free_slip", "no_slip"])
+@pytest.mark.parametrize("nx,ny", [(16, 16), (24, 32)])
+def test_saddle_apply_matches_oracle(slip, nx, ny, periodic):
+    """The full saddle apply (momentum + grad p + continuity) == the
+    oracle's matrix product."""
+    grid = StaggeredGrid(nx=nx, ny=ny, lx=1.3, ly=0.9)
+    bcs = _apply_bcs(slip, periodic)
+    eta_s, eta_n, vx, vy, p = _seam_fields(grid, periodic, seed=13)
+    kcont, kbnd = 3.5, 7.5
+
+    oracle = StokesOracle(nx, ny, grid.lx, grid.ly, bcs)
+    want = oracle.assemble(eta_s, eta_n, kcont=kcont, kbnd=kbnd) @ oracle.pack(vx, vy, p)
+    rx, ry, rc = stokes_operator(
+        *(jnp.asarray(a) for a in (vx, vy, p, eta_s, eta_n)), grid, bcs,
+        kcont=kcont, kbnd=kbnd,
+    )
+    got = oracle.pack(np.asarray(rx), np.asarray(ry), np.asarray(rc))
+    np.testing.assert_allclose(got, want, rtol=1e-12,
+                               atol=1e-12 * np.max(np.abs(want)))
+
+
 def test_stokes_rhs_matches_oracle():
     grid = StaggeredGrid(nx=6, ny=9, lx=2.0, ly=3.0)
     bcs = VelocityBCs(vn_left=0.1, vn_right=-0.1)

@@ -1,5 +1,5 @@
 """Krylov solvers must reproduce the oracle's direct spsolve solutions
-(SURVEY.md §4: the iterative TPU path replaces SuperLU; equivalence to the
+(SURVEY.md §4: the iterative path replaces SuperLU; equivalence to the
 assembled-matrix solve is the core parity test)."""
 import numpy as np
 import jax
